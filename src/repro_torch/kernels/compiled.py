@@ -1,0 +1,264 @@
+"""Compiled balanced decode: shard-planned lowering of the trunk with no
+host work inside the step.
+
+The paper's measure -> EMA -> split loop is split across the step the way
+the paper splits it across the parallel region:
+
+* **Before the step** (host): the ratio table is planned once per call
+  site and materialized as int32 boundary tensors on the device — an
+  :class:`~repro_torch.runtime.OffsetSnapshot` — passed *as arguments* into
+  the step.  Balance is decided before the parallel work starts.
+* **Inside the step** (device): every Q4 projection is ONE launch of the
+  double-buffered CUDA kernel (:func:`~repro_torch.kernels.q4_matmul.
+  q4_matmul_db`) over the full (M, N) output.  Core ``c`` owns output rows
+  ``[b[c], b[c+1])`` of the boundary tensor; the per-core shard sizes (the
+  boundary differences, a device tensor) are appended to the step's cost
+  tape — nothing is read back to the host inside the step.
+* **After the step** (host): :meth:`CompiledDispatcher.feedback` copies the
+  tape's sizes to the host once, replays each recorded region through the
+  dispatcher's virtual worker pools — same per-core time model, same Eq. 2
+  EMA updates, same bytes/busy bandwidth accounting — and refreshes the
+  snapshot for the next step.
+
+:class:`CompiledDispatcher` wraps a flat
+:class:`~repro_torch.kernels.dispatch.HybridKernelDispatcher`; it is what
+:class:`~repro_torch.models.balanced.BalancedTrunk` binds to.  Only the Q4
+branch is ported: the int8 and fp32 branches, and two-level topology
+dispatchers, come with the next slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.quant.q4 import BYTES_PER_ELEM, GROUP, QuantizedLinear
+from repro_torch.runtime import KernelSpec, OffsetSnapshot, OffsetSpec, Plan
+
+from . import ops
+from .dispatch import GEMV_ISA, kernel_key
+from .q4_matmul import DEFAULT_BLOCKS as _Q4_DEFAULT
+from .q4_matmul import q4_matmul_db, q4_matmul_plain
+
+__all__ = ["CompiledDispatcher", "CompiledSpec", "q4_blocks"]
+
+# Per-kernel shard granularities, matching the reference's bridged kernel
+# entries so both plan over identical grain sizes.
+_GRANULARITY = {"q4_matmul": 8, "int8_gemm": 16, "f32_matmul": 1}
+
+
+def q4_blocks(k: int) -> tuple:
+    """The deterministic block config the compiled Q4 lowering pins for a
+    reduction dim ``k`` — DEFAULT_BLOCKS with the ops-layer bk fix-up.  The
+    kernels read only its ``bk``, which fixes their order of sums."""
+    bm, bn, bk = _Q4_DEFAULT
+    if k % bk:
+        bk = GROUP
+        for cand in (1024, 512, 256, 128, 64, 32):
+            if k % cand == 0:
+                bk = cand
+                break
+    return (bm, bn, bk)
+
+
+@dataclass(frozen=True)
+class CompiledSpec:
+    """One registered compiled call site: everything the feedback replay
+    needs.  ``name`` keys the offset snapshot; tape records carry only
+    ``spec_id``."""
+
+    spec_id: int
+    name: str        # snapshot key: "<isa>/<kind>@<kernel>:<N>x<K>"
+    kernel: str      # "q4_matmul" | "int8_gemm" | "f32_matmul"
+    isa: str
+    key: str         # ratio-table key (kernel_key(isa, kind))
+    kind: str
+    n: int
+    k: int
+    granularity: int
+
+
+def _introspect(layer):
+    """(kernel, K) for a balanced layer (duck-typed on storage)."""
+    qw = getattr(layer, "qw", None)
+    if qw is not None:  # BalancedQuantLinear
+        return "q4_matmul", qw.in_features
+    raise NotImplementedError(
+        f"{type(layer).__name__}: only the Q4 trunk is ported yet (the "
+        f"int8 and fp32 lowerings come with the next slice)")
+
+
+class CompiledDispatcher:
+    """Compiled lowering + between-step feedback replay over a flat
+    balanced dispatcher.
+
+    One instance owns one :class:`OffsetSnapshot` on ``device`` (planned
+    from the same Balancers the dispatcher uses), a spec registry, and the
+    step's cost tape.  ``double_buffer`` picks the kernel: the
+    double-buffered :func:`q4_matmul_db` (default) or the direct one.
+    """
+
+    def __init__(self, dispatcher, *, double_buffer: bool = True,
+                 device="cuda"):
+        if getattr(dispatcher, "socket_dispatchers", None) is not None:
+            raise NotImplementedError(
+                "topology dispatchers are not ported yet")
+        self.dispatcher = dispatcher
+        self.double_buffer = double_buffer
+        self.device = resolve_device(device)
+        self.n_workers = dispatcher.n_workers
+        self.snapshot = OffsetSnapshot(self._plan_counts, device=self.device)
+        self._specs: List[CompiledSpec] = []
+        self._by_name: Dict[str, CompiledSpec] = {}
+        self._tape: Optional[list] = None
+        # boundary tensor id -> (tensor, shard sizes): every projection of
+        # one spec in a step shares one snapshot, so its sizes are computed
+        # once per snapshot, not once per launch
+        self._sizes: Dict[int, tuple] = {}
+
+    # -------------------------------------------------------- registration --
+    def spec_for(self, layer, isa: str, kind: str) -> CompiledSpec:
+        """The registered spec for one balanced layer under one (ISA,
+        kind) — created (and its offset spec registered) on first use."""
+        kernel, k = _introspect(layer)
+        n = int(layer.out_features)
+        key = kernel_key(isa, kind)
+        name = f"{key}@{kernel}:{n}x{k}"
+        spec = self._by_name.get(name)
+        if spec is not None:
+            if spec.kernel != kernel or spec.k != k:
+                raise ValueError(
+                    f"compiled spec {name!r} re-registered with a different "
+                    f"kernel/shape")
+            return spec
+        g = _GRANULARITY[kernel]
+        spec = CompiledSpec(spec_id=len(self._specs), name=name,
+                            kernel=kernel, isa=isa, key=key, kind=kind,
+                            n=n, k=k, granularity=g)
+        self._specs.append(spec)
+        self._by_name[name] = spec
+        self.snapshot.register(OffsetSpec(name=name, total=n, granularity=g))
+        return spec
+
+    # ------------------------------------------------------------ planning --
+    def _kernel_spec(self, spec: CompiledSpec, m: int) -> KernelSpec:
+        """The runtime KernelSpec for one replayed region (the reference's
+        Q4 work model: bytes per row for the GEMV, 2*M*K flops otherwise)."""
+        bpr = spec.k * BYTES_PER_ELEM
+        work = bpr if spec.isa == GEMV_ISA else 2.0 * m * spec.k
+        return KernelSpec(spec.kernel, isa=spec.isa,
+                          granularity=spec.granularity,
+                          work_per_unit=work, key=spec.key)
+
+    def _bytes_per_unit(self, spec: CompiledSpec) -> float:
+        return spec.k * BYTES_PER_ELEM
+
+    def _plan_counts(self, ospec: OffsetSpec) -> np.ndarray:
+        """Snapshot planner: per-core counts from the current ratio state,
+        through the dispatcher's cached Balancers."""
+        spec = self._by_name[ospec.name]
+        kspec = self._kernel_spec(spec, m=1)  # work model irrelevant to plan
+        return self.dispatcher._balancer(kspec).plan(spec.n).counts
+
+    def refresh(self) -> Dict[str, torch.Tensor]:
+        """Re-plan every registered call site from the current ratio
+        tables; returns the new device offset snapshot (pass it into the
+        next step)."""
+        self._sizes.clear()
+        return self.snapshot.refresh()
+
+    # ----------------------------------------------------------- cost tape --
+    def tape_begin(self) -> list:
+        """Open the cost tape (call at the top of a step).  Every compiled
+        projection until :meth:`tape_end` appends its per-core shard sizes."""
+        self._tape = []
+        return self._tape
+
+    def tape_end(self, tape: list) -> list:
+        """Close the tape and return its records; hand them to
+        :meth:`feedback` after the step."""
+        if tape is not self._tape:
+            raise RuntimeError("mismatched compiled cost tape")
+        self._tape = None
+        return list(tape)
+
+    def _shard_sizes(self, bounds: torch.Tensor) -> torch.Tensor:
+        hit = self._sizes.get(id(bounds))
+        if hit is None or hit[0] is not bounds:
+            hit = (bounds, bounds[1:] - bounds[:-1])
+            self._sizes[id(bounds)] = hit
+        return hit[1]
+
+    def _record(self, spec: CompiledSpec, m: int, offsets) -> None:
+        if self._tape is None:
+            return
+        src = offsets if offsets is not None else self.snapshot.device()
+        self._tape.append({"spec": spec.spec_id, "m": m,
+                           "sizes": self._shard_sizes(src[spec.name])})
+
+    # ------------------------------------------------------------- kernels --
+    def apply(self, layer, x: torch.Tensor, *, isa: str, kind: str,
+              offsets=None, plain: bool = False) -> torch.Tensor:
+        """One compiled balanced projection ``y = x @ W.T``: the Q4 kernel
+        runs as one launch over the whole output, in f32, cast back to x's
+        dtype; the per-core boundaries from ``offsets`` (or the snapshot's
+        current device tensors) go to the cost tape.  ``plain=True`` runs
+        the kernel's plain torch version instead, on any device (the
+        reference path that tests and the chip smoke compare against)."""
+        spec = self.spec_for(layer, isa, kind)
+        dtype = x.dtype
+        lead = x.shape[:-1]
+        x32 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        y = self._q4(x32, layer.qw, spec, plain)
+        self._record(spec, int(x32.shape[0]), offsets)
+        return y.to(dtype).reshape(*lead, -1)
+
+    def _q4(self, x: torch.Tensor, qw: QuantizedLinear, spec: CompiledSpec,
+            plain: bool) -> torch.Tensor:
+        bk = q4_blocks(spec.k)[2]
+        if plain:
+            return q4_matmul_plain(x, qw, bk)
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            x = x.clone(memory_format=torch.contiguous_format)  # kernel layout
+        if not self.double_buffer:
+            return ops.q4_matmul(x, qw, blocks=q4_blocks(spec.k))
+        return q4_matmul_db(x, qw, bk)
+
+    # ------------------------------------------------------------ feedback --
+    def feedback(self, records, update: bool = True) -> Dict[str, torch.Tensor]:
+        """Replay one step's recorded regions through the dispatcher's
+        virtual pools — per-shard modelled times feed the Eq. 2 EMA
+        updates, bytes/busy accounting accrues — then refresh the offset
+        snapshot for the next step.  The records' device shard sizes are
+        copied to the host in one transfer."""
+        records = list(records)
+        if not records:
+            return self.refresh()
+        sizes = torch.stack([torch.as_tensor(r["sizes"])
+                             for r in records]).cpu().numpy()
+        for rec, counts in zip(records, sizes.astype(np.int64)):
+            spec = self._specs[int(rec["spec"])]
+            m = int(rec["m"])
+            if int(counts.sum()) != spec.n:
+                raise ValueError(
+                    f"device shard sizes for {spec.name!r} cover "
+                    f"{int(counts.sum())} rows, expected {spec.n}")
+            self._replay_flat(spec, m, counts, update)
+        return self.refresh()
+
+    def _replay_flat(self, spec: CompiledSpec, m: int, counts: np.ndarray,
+                     update: bool) -> None:
+        kspec = self._kernel_spec(spec, m)
+        plan = Plan(counts=counts, key=kspec.table_key,
+                    granularity=spec.granularity)
+        disp = self.dispatcher
+        # a dispatcher without a time model has nothing to replay against:
+        # keep the accounting, skip the updates
+        model_ok = disp.machine is not None
+        disp.dispatch(kspec, spec.n, None,
+                      bytes_per_unit=self._bytes_per_unit(spec),
+                      update=update and model_ok, plan=plan)

@@ -1,0 +1,24 @@
+"""Models of the port: the dense transformer family, its balanced trunk,
+and the weight converter from the reference's pytrees."""
+
+from .transformer import (
+    init_params,
+    init_state,
+    init_slot_state,
+    forward,
+    ForwardOut,
+)
+from .layers import BalancedQuantLinear
+from .balanced import BalancedTrunk
+from .convert import params_from_numpy
+
+__all__ = [
+    "BalancedTrunk",
+    "BalancedQuantLinear",
+    "init_params",
+    "init_state",
+    "init_slot_state",
+    "forward",
+    "ForwardOut",
+    "params_from_numpy",
+]

@@ -1,0 +1,147 @@
+"""Shared building blocks of the dense family the port carries (RMSNorm,
+SwiGLU MLP, embeddings, interleaved rotary embeddings), and the balanced
+Q4 linear's weight holder.
+
+Parameters are plain nested dicts of tensors in the reference's layout
+(``(d_in, d_out)`` matrices for ``x @ w``); every ``init_*`` draws from an
+explicit :class:`torch.Generator` on its device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.quant.q4 import QuantizedLinear, quantize_q4_0
+
+
+def _norm_init(cfg: ModelConfig, device) -> dict:
+    return {"w": torch.ones((cfg.d_model,), dtype=torch.float32,
+                            device=device)}
+
+
+def norm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm computed in float32, returned in x's dtype."""
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (xf * p["w"]).to(x.dtype)
+
+
+def _dense(gen: torch.Generator, shape: tuple, dtype: torch.dtype, device,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """N(0, 1) * scale (default ``d_in ** -0.5``) in ``dtype``; a leading
+    stack dimension is filled one matrix at a time (no full-stack float32
+    temporary)."""
+    d_in = shape[-2]
+    scale = scale if scale is not None else d_in ** -0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for mat in out.view(-1, *shape[-2:]):
+        mat.copy_(torch.randn(shape[-2:], generator=gen, device=device,
+                              dtype=torch.float32) * scale)
+    return out
+
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
+             n_rep: int = 1) -> dict:
+    """MLP weights stacked over ``n_rep`` period repeats."""
+    dt = cfg.cdtype
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "wi": _dense(gen, (n_rep, d, f), dt, device),
+        "wg": _dense(gen, (n_rep, d, f), dt, device),
+        "wo": _dense(gen, (n_rep, f, d), dt, device),
+    }
+
+
+def mlp_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
+            proj: Optional[callable] = None) -> torch.Tensor:
+    """SwiGLU MLP.  ``proj(name, x, w)`` overrides each projection matmul
+    (balanced dispatch of the trunk); default is the plain ``x @ w``."""
+    mm = proj or (lambda name, x, w: x @ w)
+    h = F.silu(mm("wg", x, p["wg"])) * mm("wi", x, p["wi"])
+    return mm("wo", h, p["wo"])
+
+
+def init_embedding(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    p = {"tok": _dense(gen, (cfg.vocab_size, cfg.d_model), cfg.cdtype,
+                       device, scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["out"] = _dense(gen, (cfg.d_model, cfg.vocab_size), cfg.cdtype,
+                          device)
+    return p
+
+
+def embed_fwd(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens.long()]
+
+
+def logits_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["out"]
+    return (x @ w).to(torch.float32)
+
+
+# ------------------------------------------------------- balanced linears --
+class BalancedQuantLinear:
+    """Fp32-Int4-Fp32 linear ``y = x @ W.T`` bound to a balanced dispatcher
+    (the paper's decode hot path).  In the port it holds the Q4_0 weight:
+    the compiled lowering (:mod:`repro_torch.kernels.compiled`) runs it as
+    one kernel launch and replays the per-core split on the dispatcher.
+    Calling it directly — eager per-core shard execution — is not ported
+    yet."""
+
+    def __init__(self, qw: QuantizedLinear, dispatcher):
+        self.qw = qw
+        self.dispatcher = dispatcher
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor, dispatcher) -> "BalancedQuantLinear":
+        """Quantize a dense (N, K) weight to Q4_0 (on w's device) and bind
+        the dispatcher."""
+        return cls(quantize_q4_0(w.to(torch.float32)), dispatcher)
+
+    @property
+    def out_features(self) -> int:
+        return self.qw.out_features
+
+    def __call__(self, x, *, isa: str = "membw", key: Optional[str] = None):
+        raise NotImplementedError(
+            "eager per-core shard dispatch is not ported yet; bind the layer "
+            "through BalancedTrunk(mode='compiled')")
+
+
+# ----------------------------------------------------------------- rotary --
+def rope_angles(positions: torch.Tensor, dim: int,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) -> cos/sin (..., dim//2)."""
+    freqs = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x (B, H, S, hd); positions (B, S) or (S,).  Interleaved rotary: the
+    pairs are dims (0::2, 1::2), as in the reference (not the half-split
+    rotation of Hugging Face's Llama).  ``fraction < 1`` rotates only the
+    first ``fraction * hd`` dims."""
+    hd = x.shape[-1]
+    rot = int(hd * fraction)
+    rot -= rot % 2
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    cos, sin = rope_angles(positions, rot, theta)  # (B, S, rot/2)
+    cos = cos[:, None, :, :]
+    sin = sin[:, None, :, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    if rot < hd:
+        return torch.cat([yr, xp.to(yr.dtype)], dim=-1).to(x.dtype)
+    return yr.to(x.dtype)
