@@ -1,13 +1,15 @@
-"""Kernels of the port: the Q4_0 dequant-matmul as hand-written CUDA for
-Hopper, its plain torch version and oracle, the balanced kernel dispatcher
-(virtual replay side), and the compiled balanced-decode lowering.
+"""Kernels of the port: the Q4_0 dequant-matmul and the u8 x s8 GEMM as
+hand-written CUDA for Hopper, their plain torch versions and oracles, the
+balanced kernel dispatcher, and the compiled balanced-decode lowering.
 
-``q4_matmul.py`` holds the kernel wrappers (the CUDA sources are under
-``csrc/``), ``ops.py`` the front end, ``ref.py`` the oracle,
-``dispatch.py`` the per-core balanced dispatcher, ``compiled.py`` the
-offsets-in / cost-tape-out lowering of every trunk projection.  (The
-front end is not re-exported here: ``repro_torch.kernels.q4_matmul`` names
-the kernel module.)
+``q4_matmul.py`` and ``int8_gemm.py`` hold the kernel wrappers (the CUDA
+sources are under ``csrc/``, built by ``_build.py``), ``ops.py`` the front
+end, ``ref.py`` the oracles, ``dispatch.py`` the per-core balanced
+dispatcher (eager shards and the compiled feedback replay),
+``compiled.py`` the offsets-in / cost-tape-out lowering of every trunk
+projection.  (The front end is not re-exported here:
+``repro_torch.kernels.q4_matmul`` and ``repro_torch.kernels.int8_gemm``
+name the kernel modules.)
 """
 
 from .dispatch import (

@@ -8,9 +8,12 @@ the paper splits it across the parallel region:
   site and materialized as int32 boundary tensors on the device — an
   :class:`~repro_torch.runtime.OffsetSnapshot` — passed *as arguments* into
   the step.  Balance is decided before the parallel work starts.
-* **Inside the step** (device): every Q4 projection is ONE launch of the
-  double-buffered CUDA kernel (:func:`~repro_torch.kernels.q4_matmul.
-  q4_matmul_db`) over the full (M, N) output.  Core ``c`` owns output rows
+* **Inside the step** (device): every projection is ONE launch over the
+  full (M, N) output — the double-buffered Q4 CUDA kernel
+  (:func:`~repro_torch.kernels.q4_matmul.q4_matmul_db`), the u8 x s8 CUDA
+  kernel (:func:`~repro_torch.kernels.int8_gemm.int8_gemm`) between
+  dynamic u8 quantization and its dequant, or, for the fp32 trunk, one
+  ``torch.matmul``.  Core ``c`` owns output rows
   ``[b[c], b[c+1])`` of the boundary tensor; the per-core shard sizes (the
   boundary differences, a device tensor) are appended to the step's cost
   tape — nothing is read back to the host inside the step.
@@ -22,9 +25,8 @@ the paper splits it across the parallel region:
 
 :class:`CompiledDispatcher` wraps a flat
 :class:`~repro_torch.kernels.dispatch.HybridKernelDispatcher`; it is what
-:class:`~repro_torch.models.balanced.BalancedTrunk` binds to.  Only the Q4
-branch is ported: the int8 and fp32 branches, and two-level topology
-dispatchers, come with the next slice.
+:class:`~repro_torch.models.balanced.BalancedTrunk` binds to in
+``mode="compiled"``.  Two-level topology dispatchers are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,12 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.quant.q4 import BYTES_PER_ELEM, GROUP, QuantizedLinear
+from repro_torch.quant.int8 import quantize_u8_dynamic
+from repro_torch.quant.q4 import BYTES_PER_ELEM, QuantizedLinear
 from repro_torch.runtime import KernelSpec, OffsetSnapshot, OffsetSpec, Plan
 
 from . import ops
+from .ops import q4_blocks
 from .dispatch import GEMV_ISA, kernel_key
-from .q4_matmul import DEFAULT_BLOCKS as _Q4_DEFAULT
 from .q4_matmul import q4_matmul_db, q4_matmul_plain
 
 __all__ = ["CompiledDispatcher", "CompiledSpec", "q4_blocks"]
@@ -49,20 +52,6 @@ __all__ = ["CompiledDispatcher", "CompiledSpec", "q4_blocks"]
 # Per-kernel shard granularities, matching the reference's bridged kernel
 # entries so both plan over identical grain sizes.
 _GRANULARITY = {"q4_matmul": 8, "int8_gemm": 16, "f32_matmul": 1}
-
-
-def q4_blocks(k: int) -> tuple:
-    """The deterministic block config the compiled Q4 lowering pins for a
-    reduction dim ``k`` — DEFAULT_BLOCKS with the ops-layer bk fix-up.  The
-    kernels read only its ``bk``, which fixes their order of sums."""
-    bm, bn, bk = _Q4_DEFAULT
-    if k % bk:
-        bk = GROUP
-        for cand in (1024, 512, 256, 128, 64, 32):
-            if k % cand == 0:
-                bk = cand
-                break
-    return (bm, bn, bk)
 
 
 @dataclass(frozen=True)
@@ -87,9 +76,12 @@ def _introspect(layer):
     qw = getattr(layer, "qw", None)
     if qw is not None:  # BalancedQuantLinear
         return "q4_matmul", qw.in_features
-    raise NotImplementedError(
-        f"{type(layer).__name__}: only the Q4 trunk is ported yet (the "
-        f"int8 and fp32 lowerings come with the next slice)")
+    w = getattr(layer, "w", None)
+    if w is None:
+        raise TypeError(f"not a balanced linear: {type(layer).__name__}")
+    if hasattr(w, "q"):  # BalancedLinear (QuantizedWeightI8)
+        return "int8_gemm", int(w.q.shape[1])
+    return "f32_matmul", int(w.shape[1])  # BalancedFp32Linear
 
 
 class CompiledDispatcher:
@@ -146,16 +138,25 @@ class CompiledDispatcher:
 
     # ------------------------------------------------------------ planning --
     def _kernel_spec(self, spec: CompiledSpec, m: int) -> KernelSpec:
-        """The runtime KernelSpec for one replayed region (the reference's
-        Q4 work model: bytes per row for the GEMV, 2*M*K flops otherwise)."""
-        bpr = spec.k * BYTES_PER_ELEM
-        work = bpr if spec.isa == GEMV_ISA else 2.0 * m * spec.k
+        """The runtime KernelSpec for one replayed region (work model
+        identical to the eager kernel entries: bytes per weight row for
+        the GEMV, 2*M*K operations otherwise; the int8 GEMV counts K)."""
+        if spec.kernel == "int8_gemm":
+            work = 2.0 * m * spec.k if spec.isa != GEMV_ISA else float(spec.k)
+        else:
+            bpr = self._bytes_per_unit(spec)
+            work = bpr if spec.isa == GEMV_ISA else 2.0 * m * spec.k
         return KernelSpec(spec.kernel, isa=spec.isa,
                           granularity=spec.granularity,
                           work_per_unit=work, key=spec.key)
 
     def _bytes_per_unit(self, spec: CompiledSpec) -> float:
-        return spec.k * BYTES_PER_ELEM
+        """Weight bytes streamed per output row."""
+        if spec.kernel == "q4_matmul":
+            return spec.k * BYTES_PER_ELEM
+        if spec.kernel == "int8_gemm":
+            return float(spec.k)
+        return 4.0 * spec.k
 
     def _plan_counts(self, ospec: OffsetSpec) -> np.ndarray:
         """Snapshot planner: per-core counts from the current ratio state,
@@ -203,17 +204,25 @@ class CompiledDispatcher:
     # ------------------------------------------------------------- kernels --
     def apply(self, layer, x: torch.Tensor, *, isa: str, kind: str,
               offsets=None, plain: bool = False) -> torch.Tensor:
-        """One compiled balanced projection ``y = x @ W.T``: the Q4 kernel
-        runs as one launch over the whole output, in f32, cast back to x's
-        dtype; the per-core boundaries from ``offsets`` (or the snapshot's
-        current device tensors) go to the cost tape.  ``plain=True`` runs
-        the kernel's plain torch version instead, on any device (the
-        reference path that tests and the chip smoke compare against)."""
+        """One compiled balanced projection ``y = x @ W.T``: the layer's
+        kernel runs as one launch over the whole output, in f32, cast back
+        to x's dtype; the per-core boundaries from ``offsets`` (or the
+        snapshot's current device tensors) go to the cost tape.
+        ``plain=True`` runs the kernel's plain torch version instead, on
+        any device (the reference path that tests and the chip smoke
+        compare against); the fp32 product has no kernel and is the same
+        either way."""
         spec = self.spec_for(layer, isa, kind)
         dtype = x.dtype
         lead = x.shape[:-1]
         x32 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        y = self._q4(x32, layer.qw, spec, plain)
+        if spec.kernel == "q4_matmul":
+            y = self._q4(x32, layer.qw, spec, plain)
+        elif spec.kernel == "int8_gemm":
+            y = ops.int8_linear(quantize_u8_dynamic(x32), layer.w,
+                                plain=plain)
+        else:
+            y = ops.f32_matmul(x32, layer.w)
         self._record(spec, int(x32.shape[0]), offsets)
         return y.to(dtype).reshape(*lead, -1)
 

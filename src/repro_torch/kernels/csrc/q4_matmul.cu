@@ -116,8 +116,9 @@ __device__ __forceinline__ void group_fma(const uint4 q, const float d,
 // Sum the G lanes of each row (aligned lane segments) and store the row.
 template <typename T>
 __device__ __forceinline__ void reduce_store(float (&acc)[kMTile], int G,
-                                             int g, bool live, int n, int N,
-                                             int m0, int mc, T* __restrict__ y) {
+                                             int g, bool live, int n,
+                                             int ldy, int m0, int mc,
+                                             T* __restrict__ y) {
 #pragma unroll
   for (int m = 0; m < kMTile; ++m) {
     float v = acc[m];
@@ -128,7 +129,7 @@ __device__ __forceinline__ void reduce_store(float (&acc)[kMTile], int G,
   if (live && g == 0) {
 #pragma unroll
     for (int m = 0; m < kMTile; ++m)
-      if (m < mc) store_y(y + static_cast<size_t>(m0 + m) * N + n, acc[m]);
+      if (m < mc) store_y(y + static_cast<size_t>(m0 + m) * ldy + n, acc[m]);
   }
 }
 
@@ -136,7 +137,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 q4_direct_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
                  const __half* __restrict__ scales, T* __restrict__ y, int M,
-                 int N, int K, int G) {
+                 int N, int K, int G, int ldy) {
   const int t = threadIdx.x;
   const int g = t % G;
   const int n = blockIdx.x * (kThreads / G) + t / G;
@@ -163,7 +164,7 @@ q4_direct_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
       group_fma<T>(q, d, xb, K, gi * 32, mc, acc);
     }
   }
-  reduce_store<T>(acc, G, g, live, n, N, m0, mc, y);
+  reduce_store<T>(acc, G, g, live, n, ldy, m0, mc, y);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -195,7 +196,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 q4_db_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
              const __half* __restrict__ scales, T* __restrict__ y, int M,
-             int N, int K, int G, int scale_async) {
+             int N, int K, int G, int ldy, int scale_async) {
   // Two slots, each one K tile of the block: (128 / G rows) x G groups.
   __shared__ __align__(16) uint4 p_buf[2][kThreads];
   __shared__ __align__(16) __half s_buf[2][kThreads];
@@ -254,14 +255,14 @@ q4_db_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
     }
     __syncthreads();  // the slot is refilled by the next iteration's issue
   }
-  reduce_store<T>(acc, G, g, live, n, N, m0, mc, y);
+  reduce_store<T>(acc, G, g, live, n, ldy, m0, mc, y);
 }
 
 template <typename T>
 cudaError_t launch(int db, const void* x, const void* packed,
                    const void* scales, void* y, int M, int N, int K, int bk,
-                   cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || bk < 32 || bk % 32 || K % bk)
+                   int ldy, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || bk < 32 || bk % 32 || K % bk || ldy < N)
     return cudaErrorInvalidValue;
   const int G = bk / 32;
   if (G > 32 || (G & (G - 1))) return cudaErrorInvalidValue;
@@ -276,20 +277,22 @@ cudaError_t launch(int db, const void* x, const void* packed,
     const int scale_async = G % 2 == 0 && (K / 32) % 2 == 0 &&
                             reinterpret_cast<uintptr_t>(scales) % 4 == 0;
     q4_db_kernel<T><<<grid, block, 0, stream>>>(xt, p, s, yt, M, N, K, G,
-                                                scale_async);
+                                                ldy, scale_async);
   } else {
-    q4_direct_kernel<T><<<grid, block, 0, stream>>>(xt, p, s, yt, M, N, K, G);
+    q4_direct_kernel<T><<<grid, block, 0, stream>>>(xt, p, s, yt, M, N, K, G,
+                                                    ldy);
   }
   return cudaGetLastError();
 }
 
 int dispatch(int db, int x_bf16, const void* x, const void* packed,
              const void* scales, void* y, int M, int N, int K, int bk,
-             void* stream) {
+             int ldy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      x_bf16 ? launch<__nv_bfloat16>(db, x, packed, scales, y, M, N, K, bk, s)
-             : launch<float>(db, x, packed, scales, y, M, N, K, bk, s);
+      x_bf16
+          ? launch<__nv_bfloat16>(db, x, packed, scales, y, M, N, K, bk, ldy, s)
+          : launch<float>(db, x, packed, scales, y, M, N, K, bk, ldy, s);
   return static_cast<int>(err);
 }
 
@@ -298,18 +301,20 @@ int dispatch(int db, int x_bf16, const void* x, const void* packed,
 extern "C" {
 
 // x: (M, K) f32 or bf16 (x_bf16 = 1); packed: u8 (N, K/2); scales: f16
-// (N, K/32); y: (M, N) in x's type.  All row-major and contiguous, x and
-// packed 16-byte aligned.  Returns the cudaError_t of the launch.
+// (N, K/32); y: (M, N) in x's type with rows ldy >= N elements apart (a
+// column slice of a wider output when ldy > N).  All row-major, the inputs
+// contiguous, x and packed 16-byte aligned.  Returns the cudaError_t of the
+// launch.
 int q4_matmul(int x_bf16, const void* x, const void* packed,
               const void* scales, void* y, int M, int N, int K, int bk,
-              void* stream) {
-  return dispatch(0, x_bf16, x, packed, scales, y, M, N, K, bk, stream);
+              int ldy, void* stream) {
+  return dispatch(0, x_bf16, x, packed, scales, y, M, N, K, bk, ldy, stream);
 }
 
 int q4_matmul_db(int x_bf16, const void* x, const void* packed,
                  const void* scales, void* y, int M, int N, int K, int bk,
-                 void* stream) {
-  return dispatch(1, x_bf16, x, packed, scales, y, M, N, K, bk, stream);
+                 int ldy, void* stream) {
+  return dispatch(1, x_bf16, x, packed, scales, y, M, N, K, bk, ldy, stream);
 }
 
 }  // extern "C"

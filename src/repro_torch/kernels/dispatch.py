@@ -1,4 +1,4 @@
-"""Hybrid kernel dispatch: Balancer-planned per-core shards of kernel regions.
+"""Hybrid kernel dispatch: Balancer-planned per-core shards of real kernels.
 
 The paper's runtime splits every GEMM/GEMV along its N dimension into one
 *contiguous* shard per core, sized by the per-ISA performance-ratio table
@@ -6,15 +6,26 @@ The paper's runtime splits every GEMM/GEMV along its N dimension into one
 
     RatioTable["avx_vnni" | "membw"]  --Eq.3-->  per-core N shards
          ^                                           |
-         +------------- Eq.2 + EMA <----------- virtual worker pools
+         |                                      virtual worker pool runs
+         +------------- Eq.2 + EMA <----------- the real kernel shard
 
-:class:`HybridKernelDispatcher` owns that loop.  This port carries the part
-that compiled balanced decode needs: the virtual (simulated hybrid CPU)
-constructor, the per-key Balancers with their capacity masks,
-``dispatch(spec, total, plan=)`` — the replay of a split the device already
-executed — and the locked bytes/busy accounting behind the paper's
-achieved-bandwidth fraction.  Shard-executing entries (``q4_matmul`` /
-``int8_gemm`` / ``f32_matmul`` per core) come with the eager shard path.
+:class:`HybridKernelDispatcher` owns that loop for any caller:
+
+* ``dispatch(spec, total[, fn][, plan=])`` — the split/run/report cycle
+  for an abstract kernel (``fn=None`` runs the pure virtual-time model;
+  ``plan=`` replays a split the device already executed, the compiled
+  decode feedback);
+* ``q4_matmul(x, qw)`` / ``int8_gemm(a, w)`` / ``f32_matmul(x, w)`` —
+  eager sharded execution: each worker's shard is one launch of the real
+  kernel over that worker's weight rows, written straight into that
+  worker's columns of one preallocated output on the device (no host
+  round trip and no copy per shard; zero-width shards launch nothing).
+
+Shard times come from the simulated hybrid CPU (the virtual pools), so no
+shard is timed on the wall clock.  The reference's per-shard block tuner
+is not ported: Q4 shards run at :func:`~repro_torch.kernels.ops.q4_blocks`,
+the compiled lowering's blocks, so eager and compiled Q4 outputs are
+bitwise equal.
 
 Primary-ISA keying follows the paper: compute-bound prefill GEMMs dispatch
 under ``"avx_vnni"``, memory-bound decode GEMVs under ``"membw"``, and the
@@ -28,10 +39,12 @@ import threading
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import events as _ev
 from repro_torch.core.hybrid_sim import SimulatedHybridCPU, make_machine
 from repro_torch.core.pool import SubTask, VirtualWorkerPool
+from repro_torch.quant.q4 import BYTES_PER_ELEM, QuantizedLinear
 from repro_torch.runtime import (
     Balancer,
     EvenPolicy,
@@ -42,6 +55,8 @@ from repro_torch.runtime import (
     RegionStats,
     StatsSink,
 )
+
+from . import ops
 
 __all__ = ["HybridKernelDispatcher", "GEMM_ISA", "GEMV_ISA",
            "TRUNK_KINDS", "kernel_key"]
@@ -105,14 +120,15 @@ class HybridKernelDispatcher:
 
     # ------------------------------------------------------- constructors --
     @classmethod
-    def virtual(cls, machine: SimulatedHybridCPU | str, *, seed: int = 0,
-                **kwargs):
+    def virtual(cls, machine: SimulatedHybridCPU | str, *,
+                execute: bool = False, seed: int = 0, **kwargs):
         """Dispatcher over the simulated hybrid CPU: shard times come from
-        the core model (no shard functions run)."""
+        the core model; ``execute=True`` additionally runs the real kernel
+        shards (the eager trunk)."""
         if isinstance(machine, str):
             machine = make_machine(machine, seed=seed)
         return cls(
-            lambda isa: VirtualWorkerPool(machine, isa=isa, execute=False),
+            lambda isa: VirtualWorkerPool(machine, isa=isa, execute=execute),
             machine.n_cores, machine=machine, **kwargs)
 
     def close(self) -> None:
@@ -253,3 +269,104 @@ class HybridKernelDispatcher:
         if self.machine is None:
             raise ValueError("bandwidth fraction needs a simulated machine")
         return self.achieved_bandwidth(isa) / self.machine.socket_bandwidth
+
+    # ------------------------------------------------------- real kernels --
+    def _require_executing(self, isa: str) -> None:
+        pool = self._pool(isa)
+        if getattr(pool, "execute", True) is False:
+            raise ValueError(
+                "this dispatcher's virtual pool does not execute shard fns "
+                "(construct with execute=True), so kernel outputs would be "
+                "missing; use dispatch() for purely modelled regions")
+
+    @staticmethod
+    def _shard_fn(run_shard: Callable[[int, int, torch.Tensor], None],
+                  out: torch.Tensor) -> Callable[[int, int], None]:
+        """One shard: the kernel over weight rows [start, start + size),
+        writing columns [start, start + size) of ``out`` in place."""
+        def fn(start: int, size: int) -> None:
+            run_shard(start, size, out[:, start:start + size])
+        return fn
+
+    def q4_matmul(self, x: torch.Tensor, qw: QuantizedLinear, *,
+                  isa: str = GEMV_ISA, key: Optional[str] = None,
+                  granularity: int = 8, work_scale: float = 1.0,
+                  update: bool = True) -> torch.Tensor:
+        """Fp32-Int4-Fp32 ``x (M,K) @ Q4_0 (N,K).T`` as balanced per-core
+        N-row shards of the direct Q4 kernel, at the compiled lowering's
+        blocks for K (:func:`~repro_torch.kernels.ops.q4_blocks`).
+        ``isa`` keys the ratio table ("membw" for decode GEMV, "avx_vnni"
+        when the same kernel runs compute-bound prefill); ``key`` refines
+        the table key per layer kind (see :func:`kernel_key`)."""
+        self._require_executing(isa)
+        m, k = x.shape
+        n = qw.out_features
+        blk = ops.q4_blocks(k)
+        out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+
+        def run_shard(start, size, dst):
+            shard = QuantizedLinear(qw.packed[start:start + size],
+                                    qw.scales[start:start + size])
+            ops.q4_matmul(x, shard, blocks=blk, out=dst)
+
+        bytes_per_row = k * BYTES_PER_ELEM
+        work = bytes_per_row if isa == GEMV_ISA else 2.0 * m * k
+        spec = KernelSpec("q4_matmul", isa=isa, granularity=granularity,
+                          work_per_unit=work, key=key)
+        self.dispatch(spec, n, self._shard_fn(run_shard, out),
+                      bytes_per_unit=bytes_per_row, work_scale=work_scale,
+                      update=update)
+        return out
+
+    def int8_gemm(self, a_u8: torch.Tensor, w_s8: torch.Tensor, *,
+                  isa: str = GEMM_ISA, key: Optional[str] = None,
+                  granularity: int = 16, work_scale: float = 1.0,
+                  update: bool = True) -> torch.Tensor:
+        """u8 (M,K) x s8 (N,K) -> s32 (M,N) as balanced per-core N-row
+        shards of the int8 kernel (the paper's VNNI prefill GEMM; the s32
+        sums are exact, so shard outputs equal the monolithic product bit
+        for bit)."""
+        self._require_executing(isa)
+        m, k = a_u8.shape
+        n = w_s8.shape[0]
+        out = torch.empty((m, n), dtype=torch.int32, device=a_u8.device)
+
+        def run_shard(start, size, dst):
+            ops.int8_gemm(a_u8, w_s8[start:start + size], out=dst)
+
+        work = 2.0 * m * k if isa != GEMV_ISA else float(k)
+        spec = KernelSpec("int8_gemm", isa=isa, granularity=granularity,
+                          work_per_unit=work, key=key)
+        self.dispatch(spec, n, self._shard_fn(run_shard, out),
+                      bytes_per_unit=float(k), work_scale=work_scale,
+                      update=update)
+        return out
+
+    def f32_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
+                   isa: str = GEMV_ISA, key: Optional[str] = None,
+                   granularity: int = 1, work_scale: float = 1.0,
+                   update: bool = True) -> torch.Tensor:
+        """f32 ``x (M,K) @ W (N,K).T`` as balanced per-core N-row shards of
+        a plain ``torch.matmul`` (TF32 off) — no quantization, no block
+        constraints (``granularity=1``).  This is the trunk's precision
+        reference: the bytes model streams the f32 weight rows (4K bytes
+        each).  A shard may sum in another order than the monolithic
+        product (the BLAS picks its kernel by shape), so the two agree
+        within float tolerance, not bit for bit."""
+        self._require_executing(isa)
+        x = x.to(torch.float32)
+        m, k = x.shape
+        n = w.shape[0]
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+
+        def run_shard(start, size, dst):
+            ops.f32_matmul(x, w[start:start + size], out=dst)
+
+        bytes_per_row = 4.0 * k
+        work = bytes_per_row if isa == GEMV_ISA else 2.0 * m * k
+        spec = KernelSpec("f32_matmul", isa=isa, granularity=granularity,
+                          work_per_unit=work, key=key)
+        self.dispatch(spec, n, self._shard_fn(run_shard, out),
+                      bytes_per_unit=bytes_per_row, work_scale=work_scale,
+                      update=update)
+        return out

@@ -14,8 +14,9 @@ Both are bit-identical at equal ``bk`` (one shared tile routine, one order
 of sums); see ``csrc/q4_matmul.cu`` for what bounds them and the design.
 
 The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first launch (into ``build/kernels/`` of the
-checkout, keyed by a hash of the source) and loaded with :mod:`ctypes`.
+with a plain C interface at first launch (:mod:`._build`: into
+``build/kernels/`` of the checkout, keyed by a hash of the source) and
+loaded with :mod:`ctypes`.
 A wrapper takes :func:`q4_matmul_plain` only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute, ``q4_matmul.launches`` and
@@ -26,20 +27,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.quant.q4 import GROUP, QuantizedLinear
 
+from . import _build
+
 __all__ = ["q4_matmul", "q4_matmul_db", "q4_matmul_plain", "compile_library",
-           "reset_launch_counts", "DEFAULT_BLOCKS", "SOURCE", "BUILD_DIR"]
+           "reset_launch_counts", "DEFAULT_BLOCKS", "SOURCE"]
 
 # (bm, bn, bk): the reference's default block tuple.  The CUDA kernels fix
 # their own (rows x M) tile and read only bk, the K tile, which sets the
@@ -47,11 +45,6 @@ __all__ = ["q4_matmul", "q4_matmul_db", "q4_matmul_plain", "compile_library",
 DEFAULT_BLOCKS = (8, 256, 512)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "q4_matmul.cu"
-# src/repro_torch/kernels/q4_matmul.py -> <checkout>/build/kernels
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 # ------------------------------------------------------------ plain version --
@@ -85,44 +78,17 @@ def q4_matmul_plain(x: torch.Tensor, qw: QuantizedLinear,
 
 # ------------------------------------------------------------------- build --
 def compile_library(force: bool = False) -> Tuple[Path, str]:
-    """Compile ``csrc/q4_matmul.cu`` with nvcc for sm_90a (unless a build of
-    this exact source exists and ``force`` is False).  Returns the shared
-    library's path and nvcc's log (register and shared-memory use per
-    kernel; empty when the build was found)."""
-    src = SOURCE.read_bytes()
-    out = BUILD_DIR / f"libq4_matmul-{hashlib.sha1(src).hexdigest()[:12]}.so"
-    if out.exists() and not force:
-        return out, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
-                           "the Q4 CUDA kernels cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see half
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stdout + proc.stderr
+    """Compile ``csrc/q4_matmul.cu`` (see :func:`._build.compile_library`);
+    returns the shared library's path and nvcc's log."""
+    return _build.compile_library(SOURCE, force=force)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    path, _ = compile_library()
-    lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ("q4_matmul", "q4_matmul_db"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        fn.restype = ci
-    return lib
+    args = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    return _build.load_library(SOURCE, {"q4_matmul": args,
+                                        "q4_matmul_db": args})
 
 
 # ---------------------------------------------------------------- wrappers --
@@ -158,12 +124,15 @@ def _check(x: torch.Tensor, qw: QuantizedLinear, bk: int) -> None:
         raise ValueError("dimensions must fit in int32")
 
 
-def _launch(entry: str, x: torch.Tensor, qw: QuantizedLinear,
-            bk: int) -> torch.Tensor:
+def _launch(wrapper, entry: str, x: torch.Tensor, qw: QuantizedLinear,
+            bk: int, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch ``entry`` into ``out`` (or a new tensor) and add one to
+    ``wrapper.launches`` (an empty product launches nothing and counts
+    nothing)."""
     _check(x, qw, bk)
     m, k = x.shape
     n = qw.packed.shape[0]
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    y, ldy = _build.output(out, m, n, x.dtype, x.device)
     if m == 0 or n == 0:
         return y
     fn = getattr(_library(), entry)
@@ -171,10 +140,11 @@ def _launch(entry: str, x: torch.Tensor, qw: QuantizedLinear,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(int(x.dtype == torch.bfloat16), x.data_ptr(),
                  qw.packed.data_ptr(), qw.scales.data_ptr(), y.data_ptr(),
-                 m, n, k, bk, stream)
+                 m, n, k, bk, ldy, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err} "
                            f"(M={m}, N={n}, K={k}, bk={bk})")
+    wrapper.launches += 1
     return y
 
 
@@ -188,26 +158,30 @@ def _route(x: torch.Tensor) -> bool:
     raise ValueError(f"no Q4 kernel for device {x.device}")
 
 
-def q4_matmul(x: torch.Tensor, qw: QuantizedLinear, bk: int) -> torch.Tensor:
+def _plain(x: torch.Tensor, qw: QuantizedLinear, bk: int,
+           out: Optional[torch.Tensor]) -> torch.Tensor:
+    y = q4_matmul_plain(x, qw, bk)
+    return y if out is None else out.copy_(y)
+
+
+def q4_matmul(x: torch.Tensor, qw: QuantizedLinear, bk: int, *,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x (M, K) f32/bf16 @ dequant(Q4_0 (N, K)).T -> (M, N)`` in x's dtype
-    (replaces ``q4_matmul_pallas``)."""
+    (replaces ``q4_matmul_pallas``), written into ``out`` when given (a
+    row-major (M, N) tensor whose rows may lie further apart than N)."""
     if _route(x):
-        return q4_matmul_plain(x, qw, bk)
-    y = _launch("q4_matmul", x, qw, bk)
-    q4_matmul.launches += 1
-    return y
+        return _plain(x, qw, bk, out)
+    return _launch(q4_matmul, "q4_matmul", x, qw, bk, out)
 
 
-def q4_matmul_db(x: torch.Tensor, qw: QuantizedLinear,
-                 bk: int) -> torch.Tensor:
+def q4_matmul_db(x: torch.Tensor, qw: QuantizedLinear, bk: int, *,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The same product with the K stream double-buffered through shared
     memory (replaces ``q4_matmul_pallas_db``); bit-identical to
     :func:`q4_matmul` at equal ``bk``."""
     if _route(x):
-        return q4_matmul_plain(x, qw, bk)
-    y = _launch("q4_matmul_db", x, qw, bk)
-    q4_matmul_db.launches += 1
-    return y
+        return _plain(x, qw, bk, out)
+    return _launch(q4_matmul_db, "q4_matmul_db", x, qw, bk, out)
 
 
 q4_matmul.launches = 0

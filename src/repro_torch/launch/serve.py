@@ -10,13 +10,15 @@ per-phase throughput; each replica interleaves chunked prefill with its
 running decode batch.  ``--machine`` drives a deterministic virtual clock
 from the paper's hybrid-CPU model (``--machine wall``: real wall time).
 ``--balanced-trunk`` runs every trunk projection and the LM head as one
-Q4 CUDA kernel launch each (compiled balanced decode), with per-phase x
+kernel launch each (compiled balanced decode) — the Q4 CUDA kernel, or
+with ``--trunk-quant int8`` the u8 x s8 CUDA kernel, or with
+``--trunk-quant fp32`` one ``torch.matmul`` — with per-phase x
 per-layer-kind ratio tables fed from the step's cost tape.
 
 ``--device cpu`` runs the same path with the kernels' plain torch version.
 The fleet, legacy whole-batch and topology modes, the balanced-head-only
-mode, the int8/fp32 trunks, the kernel-tuner cache and the observability
-exporters are not ported yet: those flags exit with a message.
+mode, the kernel-tuner cache and the observability exporters are not
+ported yet: those flags exit with a message.
 """
 
 from __future__ import annotations
@@ -101,12 +103,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="JSON path to warm-start/persist replica ratios")
     ap.add_argument("--balanced-trunk", action="store_true",
                     help="run EVERY trunk projection (q/k/v/o, MLP "
-                         "up/gate/down, head) as one Q4 kernel launch with "
+                         "up/gate/down, head) as one kernel launch with "
                          "per-core splits replayed into per-phase x "
                          "per-layer-kind ratio tables")
     ap.add_argument("--trunk-quant", choices=["q4", "int8", "fp32"],
                     default="q4",
-                    help="balanced-trunk weight path (only q4 is ported)")
+                    help="balanced-trunk weight path: Q4_0 CUDA GEMV, "
+                         "dynamic-u8 x s8 CUDA GEMM, or fp32 torch.matmul")
     ap.add_argument("--legacy-batch", action="store_true",
                     help="(not ported yet)")
     ap.add_argument("--fleet", action="store_true", help="(not ported yet)")
@@ -129,9 +132,6 @@ def check_ported(args) -> None:
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(needs {needs})")
-    if args.balanced_trunk and args.trunk_quant != "q4":
-        raise SystemExit(f"--trunk-quant {args.trunk_quant} is not ported "
-                         f"yet (only q4)")
     if args.balanced_trunk and args.machine == "wall":
         raise SystemExit("--machine wall with --balanced-trunk is not "
                          "ported yet (needs the threaded dispatcher)")
@@ -151,13 +151,14 @@ class ServeRun:
     slot_counts: list
     clock: str
     report: LatencyReport
+    iterations: list      # IterationStats of every engine step, in order
 
 
 def build_engines(args, cfg, params, device, *,
                   double_buffer: bool = True) -> tuple:
     """One continuous-batching engine (and, with ``--balanced-trunk``, one
     virtual-clock kernel dispatcher) per replica.  ``double_buffer=False``
-    lowers the trunk onto the direct Q4 kernel instead of the
+    lowers a Q4 trunk onto the direct kernel instead of the
     double-buffered one."""
     chunk = args.prefill_chunk if args.prefill_chunk > 0 else None
     max_seq = args.prompt_len + args.steps + 8
@@ -208,15 +209,17 @@ def serve(args, params: Optional[dict] = None, *,
         prompt_len=args.prompt_len, max_new_tokens=args.steps,
         seed=args.seed)
     routed = np.zeros(args.replicas, dtype=np.int64)
+    iterations = []
     t_wall = time.perf_counter()
     for r in requests:
         # let in-flight work progress up to this arrival so per-phase
         # throughput feedback steers later routing (open loop)
         while inflight.has_work and inflight.now < r.arrival_time:
-            inflight.step()
+            iterations += inflight.step()
         i, _ = inflight.submit(r)
         routed[i] += 1
-    inflight.run_until_idle()
+    for stats in inflight.run_until_idle():
+        iterations += stats
     clock = "virtual" if args.machine != "wall" else "wall"
     report = LatencyReport.from_requests(
         requests, clock=clock, wall_duration=time.perf_counter() - t_wall)
@@ -227,7 +230,7 @@ def serve(args, params: Optional[dict] = None, *,
                     requests=requests, routed=routed,
                     slot_counts=replica_slot_counts(args.batch,
                                                     args.replicas),
-                    clock=clock, report=report)
+                    clock=clock, report=report, iterations=iterations)
 
 
 def report_lines(args, run: ServeRun) -> list:

@@ -8,13 +8,15 @@ from .transformer import (
     forward,
     ForwardOut,
 )
-from .layers import BalancedQuantLinear
+from .layers import BalancedFp32Linear, BalancedLinear, BalancedQuantLinear
 from .balanced import BalancedTrunk
 from .convert import params_from_numpy
 
 __all__ = [
     "BalancedTrunk",
     "BalancedQuantLinear",
+    "BalancedLinear",
+    "BalancedFp32Linear",
     "init_params",
     "init_state",
     "init_slot_state",

@@ -1,15 +1,23 @@
 """Balanced trunk: every projection of the decode step through the paper's
-per-core split, lowered by :class:`~repro_torch.kernels.compiled.
-CompiledDispatcher`.
+per-core split.
 
-:class:`BalancedTrunk` quantizes every trunk projection (q/k/v/o, MLP
-up/gate/down) and the LM head to Q4_0 and hands the trunk forward a
-per-layer projection hook.  The port carries the reference's
-``mode="compiled"``: each projection is one CUDA kernel launch whose
-per-core boundaries are device offset tensors planned *between* engine
-steps, with a cost tape feeding the Eq. 2 EMA updates after the step.
-``mode="eager"`` (host-side per-core shard execution) is not ported yet;
-``mode="bridge"`` (the reference's io_callback bridge) has no counterpart.
+:class:`BalancedTrunk` turns every trunk projection (q/k/v/o, MLP
+up/gate/down) and the LM head into a dispatcher-bound balanced linear —
+:class:`~repro_torch.models.layers.BalancedQuantLinear` (Q4_0 decode
+GEMV), :class:`~repro_torch.models.layers.BalancedLinear` (dynamic-u8 x s8
+INT8 GEMM) or :class:`~repro_torch.models.layers.BalancedFp32Linear`
+(precision reference) — and hands the trunk forward a per-layer
+projection hook.  Two execution modes:
+
+* ``mode="compiled"``: each projection is one CUDA kernel launch (one
+  ``torch.matmul`` for fp32) whose per-core boundaries are device offset
+  tensors planned *between* engine steps, with a cost tape feeding the
+  Eq. 2 EMA updates after the step (:mod:`repro_torch.kernels.compiled`);
+* ``mode="eager"``: each projection plans its per-core split when it is
+  called and runs one kernel launch per core on that core's weight rows,
+  feeding the shard times back at once — the paper's own execution model
+  and the port's counterpart of the reference's eager and bridge modes
+  (the reference's io_callback bridge has no meaning in torch).
 
 Table keys are per (ISA x layer kind): ``kernel_key("membw",
 "attn_proj")``, ... (see :data:`~repro_torch.kernels.dispatch.TRUNK_KINDS`).
@@ -23,12 +31,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.dispatch import kernel_key
 
-from .layers import BalancedQuantLinear
+from .layers import BalancedFp32Linear, BalancedLinear, BalancedQuantLinear
 
 __all__ = ["BalancedTrunk", "QUANT_MODES"]
 
 QUANT_MODES = ("q4", "int8", "fp32")
+
+_LAYER_CLS = {
+    "q4": BalancedQuantLinear,
+    "int8": BalancedLinear,
+    "fp32": BalancedFp32Linear,
+}
 
 # (group, param name) -> ratio-table layer kind
 _KIND = {
@@ -48,19 +63,15 @@ class BalancedTrunk:
     ``bank[(j, group, name)]`` holds one balanced linear per period repeat
     for period position ``j`` and parameter ``name`` of ``group`` ("attn"
     mixer or dense "ffn").  ``head`` is the optional balanced LM head (kind
-    ``"head"``).  Q4 weights live on ``device``.
+    ``"head"``).  The weights live on ``device``.
     """
 
-    MODES = ("compiled",)
+    MODES = ("compiled", "eager")
 
     def __init__(self, cfg: ModelConfig, dispatcher, *,
                  bank: Dict[Tuple[int, str, str], List],
                  head=None, quant: str = "q4", mode: str = "compiled",
                  double_buffer: bool = True, device="cuda"):
-        if mode == "eager":
-            raise NotImplementedError(
-                "mode='eager' (host-side per-core shard execution) is not "
-                "ported yet")
         if mode not in self.MODES:
             raise ValueError(f"mode must be one of {self.MODES} (the "
                              f"reference's 'bridge' has no counterpart)")
@@ -80,23 +91,28 @@ class BalancedTrunk:
                     quant: str = "q4", include_head: bool = True,
                     mode: str = "compiled", double_buffer: bool = True,
                     device="cuda") -> "BalancedTrunk":
-        """Quantize every trunk projection of ``params`` into dispatcher-
-        bound balanced linears on ``device``.
+        """Quantize (or copy, for fp32) every trunk projection of
+        ``params`` into dispatcher-bound balanced linears on ``device``.
 
         Weights are stored transposed relative to the forward's ``x @ w``
         convention: a (d_in, d_out) parameter becomes an (N, K) = (d_out,
         d_in) balanced linear computing ``x @ W.T``.
+
+        Eager and compiled Q4 launches take the same blocks
+        (:func:`~repro_torch.kernels.ops.q4_blocks`), so the reference's
+        ``pin_q4_blocks`` has nothing to pin here.  An fp32 trunk switches
+        TF32 off for the process's CUDA matmuls (PyTorch's default), so
+        its products are full float32.
         """
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}")
-        if quant != "q4":
-            raise NotImplementedError(
-                f"quant={quant!r}: only the Q4 trunk is ported yet (int8 "
-                f"and fp32 come with the next slice)")
+        layer_cls = _LAYER_CLS[quant]
         dev = resolve_device(device)
+        if quant == "fp32":
+            torch.backends.cuda.matmul.fp32_precision = "ieee"
 
         def make_layer(w):  # w is dense (N, K)
-            return BalancedQuantLinear.from_dense(w.to(dev), dispatcher)
+            return layer_cls.from_dense(w.to(dev), dispatcher)
 
         bank: Dict[Tuple[int, str, str], List] = {}
         for j, (mixer, ffn) in enumerate(cfg.period()):
@@ -129,6 +145,8 @@ class BalancedTrunk:
         (both phase ISAs, plus the head) pre-registered in the reference's
         order, so the offset snapshot's keyset is complete before the
         first step."""
+        if self.mode != "compiled":
+            raise ValueError(f"trunk mode is {self.mode!r}, not 'compiled'")
         if self._ctx is None:
             from repro_torch.kernels.compiled import CompiledDispatcher
 
@@ -170,10 +188,27 @@ class BalancedTrunk:
         """The ``proj(name, x, w)`` hook for one (period position, repeat,
         group): balanced layers where banked, plain matmul otherwise.
         Returns ``None`` when nothing at this position is banked.
-        ``offsets`` is the device offset snapshot the step was called with;
-        ``plain`` picks the kernels' plain torch version."""
+        ``offsets`` (compiled mode) is the device offset snapshot the step
+        was called with; ``plain`` (compiled mode) picks the kernels'
+        plain torch version.  In eager mode each call dispatches the
+        layer's per-core shards and casts the f32 result to x's dtype."""
         if not self.supports(j, group):
             return None
+        if self.mode == "eager":
+            if plain:
+                raise ValueError("plain=True picks the compiled lowering's "
+                                 "comparison path; eager shards take the "
+                                 "plain version only for CPU tensors")
+
+            def proj(name: str, x: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+                layers = self.bank.get((j, group, name))
+                if layers is None:
+                    return x @ w
+                key = kernel_key(isa, _KIND[(group, name)])
+                return layers[rep](x, isa=isa, key=key).to(x.dtype)
+
+            return proj
         ctx = self._compiled()
 
         def proj(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -189,8 +224,13 @@ class BalancedTrunk:
     def apply_head(self, x: torch.Tensor, *, isa: str, offsets=None,
                    plain: bool = False) -> torch.Tensor:
         """Balanced LM head with the per-phase ``kernel_key(isa, "head")``
-        table key, lowered like every other projection."""
+        table key, run like every other projection of the trunk's mode."""
         if self.head is None:
             raise ValueError("trunk was built with include_head=False")
+        if self.mode == "eager":
+            if plain:
+                raise ValueError("plain=True is a compiled-mode option")
+            return self.head(x, isa=isa,
+                             key=kernel_key(isa, "head")).to(x.dtype)
         return self._compiled().apply(self.head, x, isa=isa, kind="head",
                                       offsets=offsets, plain=plain)

@@ -1,6 +1,6 @@
 """Shared building blocks of the dense family the port carries (RMSNorm,
 SwiGLU MLP, embeddings, interleaved rotary embeddings), and the balanced
-Q4 linear's weight holder.
+linears of the trunk (Q4_0, int8 and fp32).
 
 Parameters are plain nested dicts of tensors in the reference's layout
 (``(d_in, d_out)`` matrices for ``x @ w``); every ``init_*`` draws from an
@@ -15,6 +15,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.quant.int8 import (
+    QuantizedWeightI8,
+    quantize_s8_symmetric,
+    quantize_u8_dynamic,
+    u8s8_matmul_decompose,
+)
 from repro_torch.quant.q4 import QuantizedLinear, quantize_q4_0
 
 
@@ -85,13 +91,21 @@ def logits_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------- balanced linears --
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """(..., K) hidden states as one contiguous (M, K) float32 GEMM/GEMV
+    operand."""
+    return x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
+
+
 class BalancedQuantLinear:
     """Fp32-Int4-Fp32 linear ``y = x @ W.T`` bound to a balanced dispatcher
-    (the paper's decode hot path).  In the port it holds the Q4_0 weight:
-    the compiled lowering (:mod:`repro_torch.kernels.compiled`) runs it as
-    one kernel launch and replays the per-core split on the dispatcher.
-    Calling it directly — eager per-core shard execution — is not ported
-    yet."""
+    (the paper's decode hot path), holding the Q4_0 weight.  The compiled
+    lowering (:mod:`repro_torch.kernels.compiled`) runs it as one kernel
+    launch and replays the per-core split on the dispatcher; calling it
+    runs one real kernel shard per core (eager dispatch).  ``isa`` keys
+    the table per phase: ``"membw"`` for memory-bound decode GEMV,
+    ``"avx_vnni"`` when the same weight runs a compute-bound prefill GEMM.
+    """
 
     def __init__(self, qw: QuantizedLinear, dispatcher):
         self.qw = qw
@@ -107,10 +121,63 @@ class BalancedQuantLinear:
     def out_features(self) -> int:
         return self.qw.out_features
 
-    def __call__(self, x, *, isa: str = "membw", key: Optional[str] = None):
-        raise NotImplementedError(
-            "eager per-core shard dispatch is not ported yet; bind the layer "
-            "through BalancedTrunk(mode='compiled')")
+    def __call__(self, x: torch.Tensor, *, isa: str = "membw",
+                 key: Optional[str] = None) -> torch.Tensor:
+        y = self.dispatcher.q4_matmul(_rows(x), self.qw, isa=isa, key=key)
+        return y.reshape(*x.shape[:-1], -1)
+
+
+class BalancedLinear:
+    """Dense linear executed as the paper's prefill path: dynamic u8
+    activation quantization + s8 weights through balanced per-core INT8
+    GEMM shards (``avx_vnni`` table key), dequantized back to f32."""
+
+    def __init__(self, w_s8: QuantizedWeightI8, dispatcher):
+        self.w = w_s8
+        self.dispatcher = dispatcher
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor, dispatcher) -> "BalancedLinear":
+        """Quantize a dense (N, K) weight to s8 (on w's device)."""
+        return cls(quantize_s8_symmetric(w), dispatcher)
+
+    @property
+    def out_features(self) -> int:
+        return self.w.out_features
+
+    def __call__(self, x: torch.Tensor, *, isa: str = "avx_vnni",
+                 key: Optional[str] = None) -> torch.Tensor:
+        qa = quantize_u8_dynamic(_rows(x))
+        acc = self.dispatcher.int8_gemm(qa.q, self.w.q, isa=isa, key=key)
+        y = u8s8_matmul_decompose(qa, self.w, acc)
+        return y.reshape(*x.shape[:-1], -1)
+
+
+class BalancedFp32Linear:
+    """Full-precision linear sharded per core through the dispatcher's
+    plain ``torch.matmul`` — the trunk's precision-reference path: the
+    same product as the monolithic ``x @ W.T`` (N-row shards change no
+    output element's terms), yet every call still exercises the
+    ratio-table loop and bytes accounting like the quantized paths.  The
+    f32 (N, K) weight lives on the device."""
+
+    def __init__(self, w: torch.Tensor, dispatcher):
+        self.w = w.to(torch.float32).contiguous()
+        self.dispatcher = dispatcher
+
+    @classmethod
+    def from_dense(cls, w: torch.Tensor,
+                   dispatcher) -> "BalancedFp32Linear":
+        return cls(w, dispatcher)
+
+    @property
+    def out_features(self) -> int:
+        return self.w.shape[0]
+
+    def __call__(self, x: torch.Tensor, *, isa: str = "membw",
+                 key: Optional[str] = None) -> torch.Tensor:
+        y = self.dispatcher.f32_matmul(_rows(x), self.w, isa=isa, key=key)
+        return y.reshape(*x.shape[:-1], -1)
 
 
 # ----------------------------------------------------------------- rotary --

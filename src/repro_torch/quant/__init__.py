@@ -1,4 +1,5 @@
-"""Quantization substrate of the port: Q4_0 weights (llama.cpp layout)."""
+"""Quantization substrate of the port: Q4_0 weights (llama.cpp layout) and
+dynamic u8 activations against symmetric s8 weights."""
 
 from .q4 import (
     GROUP,
@@ -7,6 +8,15 @@ from .q4 import (
     quantize_q4_0,
     dequantize_q4_0,
 )
+from .int8 import (
+    QuantizedActivation,
+    QuantizedWeightI8,
+    quantize_u8_dynamic,
+    dequantize_u8,
+    quantize_s8_symmetric,
+    dequantize_s8,
+    u8s8_matmul_decompose,
+)
 
 __all__ = [
     "GROUP",
@@ -14,4 +24,11 @@ __all__ = [
     "QuantizedLinear",
     "quantize_q4_0",
     "dequantize_q4_0",
+    "QuantizedActivation",
+    "QuantizedWeightI8",
+    "quantize_u8_dynamic",
+    "dequantize_u8",
+    "quantize_s8_symmetric",
+    "dequantize_s8",
+    "u8s8_matmul_decompose",
 ]

@@ -1,5 +1,5 @@
-"""Serving engine: request-level continuous batching over the compiled
-balanced trunk.
+"""Serving engine: request-level continuous batching over the balanced
+trunk.
 
 ``ContinuousBatchingEngine`` is the serving core: a persistent decode
 batch of ``max_slots`` rows (slot-based KV state, per-row cache indices),
@@ -50,11 +50,15 @@ class ContinuousBatchingEngine:
     3. *Decode lane*: one greedy step for the whole persistent batch;
        finished requests release their slots immediately.
 
-    With a ``balanced_trunk`` (a compiled
+    With a compiled ``balanced_trunk`` (a
     :class:`~repro_torch.models.BalancedTrunk`) every projection of both
-    lanes, and the LM head, runs as one Q4 kernel launch; the step takes
-    the device offset snapshot as an argument and returns its cost tape,
-    which is replayed into the ratio tables between steps.
+    lanes, and the LM head, runs as one kernel launch; the step takes the
+    device offset snapshot as an argument and returns its cost tape, which
+    is replayed into the ratio tables between steps.  An eager trunk has
+    neither: each projection plans, runs one kernel shard per core and
+    feeds back when it is called, and its head runs only where a token is
+    sampled (the last prefill chunk and every decode step), as in the
+    reference's ``jit_bridge=False`` engine.
 
     ``cost_model`` (see :class:`~repro_torch.serving.phases.
     PhaseCostModel`) replaces wall timing with deterministic virtual
@@ -97,7 +101,8 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         # (B,) greedy rows by default; a sampler sees (B, V) logits.
         self._pick = sampler or (lambda lg: torch.argmax(lg, -1))
-        self._compiled_trunk = balanced_trunk is not None
+        self._compiled_trunk = (balanced_trunk is not None
+                                and balanced_trunk.mode == "compiled")
         # Initial offset snapshot (compiled trunk): planned from whatever
         # the ratio tables currently hold, refreshed after every step.
         self._offsets = (balanced_trunk.compiled_refresh()
@@ -106,13 +111,16 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------ the step --
     def _run(self, tokens: torch.Tensor, state, pos, phase: str):
         """One trunk call (prefill chunk or decode step).  Returns (B, V)
-        logits, the updated state, and the step's cost-tape records (None
-        without a trunk)."""
+        logits — (B, d) hidden states when an eager trunk's head is still
+        to run (:meth:`_head`) — the updated state, and the step's
+        cost-tape records (None without a compiled trunk)."""
         trunk = self.balanced_trunk
         last = "last" if phase == PREFILL else "all"
-        if trunk is None:
+        if not self._compiled_trunk:
             out = forward(self.cfg, self.params, tokens, state=state,
-                          pos_offset=pos, logits_mode=last)
+                          pos_offset=pos, logits_mode=last,
+                          apply_head=trunk is None or trunk.head is None,
+                          trunk=trunk, trunk_isa=PHASE_ISA[phase])
             return out.logits[:, -1, :], out.state, None
         tape = trunk.compiled_tape_begin()
         out = forward(self.cfg, self.params, tokens, state=state,
@@ -124,6 +132,14 @@ class ContinuousBatchingEngine:
             logits = trunk.apply_head(logits, isa=PHASE_ISA[phase],
                                       offsets=self._offsets)
         return logits, out.state, trunk.compiled_tape_end(tape)
+
+    def _head(self, hidden: torch.Tensor, phase: str) -> torch.Tensor:
+        """An eager trunk's LM head over (B, d) hidden states; the logits
+        of every other engine pass through."""
+        trunk = self.balanced_trunk
+        if self._compiled_trunk or trunk is None or trunk.head is None:
+            return hidden
+        return trunk.apply_head(hidden, isa=PHASE_ISA[phase])
 
     def _feedback(self, recs) -> None:
         """Between-step feedback: replay the step's cost tape into the ratio
@@ -265,7 +281,8 @@ class ContinuousBatchingEngine:
             if chunk.is_last:
                 # sampling inside the timed window, matching the decode
                 # lane (TTFT includes the head)
-                tok = int(self._pick(logits).reshape(-1)[0])
+                tok = int(self._pick(self._head(logits, PREFILL))
+                          .reshape(-1)[0])
             if self.cost_model is None:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
@@ -299,7 +316,8 @@ class ContinuousBatchingEngine:
             pos = torch.as_tensor(man.pos, device=dev)
             t0 = time.perf_counter()
             logits, man.state, recs = self._run(tok, man.state, pos, DECODE)
-            next_tok = self._pick(logits).reshape(-1).cpu().numpy()
+            next_tok = (self._pick(self._head(logits, DECODE))
+                        .reshape(-1).cpu().numpy())
             if self.cost_model is None:
                 dt = time.perf_counter() - t0
             else:

@@ -18,7 +18,7 @@ from repro.kernels.q4_matmul import q4_matmul_pallas, q4_matmul_pallas_db
 from repro.quant.q4 import QuantizedLinear as RefQL
 from repro.quant.q4 import dequantize_q4_0 as ref_dequant
 from repro.quant.q4 import quantize_q4_0 as ref_quant
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import q4_matmul as K
 from repro_torch.kernels import ref as port_oracle
 from repro_torch.kernels.compiled import q4_blocks
@@ -181,12 +181,14 @@ def test_kernel_input_checks(case):
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    """No fallback: a kernel that cannot be built raises."""
-    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "kernels")
-    monkeypatch.setattr(K.shutil, "which", lambda name: None)
-    monkeypatch.setattr(K.os.path, "exists", lambda path: False)
+    """No fallback: a kernel that cannot be built raises.  The build helper
+    keeps the library's name: lib<source stem>-<hash of the source>.so."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc"):
-        K.compile_library()
+        _build.compile_library(K.SOURCE, tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.compile_library(force=True)
 
 
 def test_kernel_source_names_what_it_replaces():

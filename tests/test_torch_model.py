@@ -287,21 +287,19 @@ def test_direct_kernel_lowering_equals_double_buffered(model):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("case", ["int8", "fp32", "eager", "bridge",
-                                  "lanes", "topology", "arch", "eager_call",
+@pytest.mark.parametrize("case", ["bridge", "lanes", "topology", "arch",
+                                  "balanced_head", "topology_dispatcher",
                                   "no_card"])
 def test_unported_paths_raise(model, case, monkeypatch):
     cfg_p, params_p = model[1], model[3]
     disp = PortDisp.virtual("ultra-125h")
+    from repro_torch.kernels.compiled import CompiledDispatcher
     from repro_torch.serving import ContinuousBatchingEngine
 
+    class SocketDispatcher:
+        socket_dispatchers = [disp, disp]
+
     calls = {
-        "int8": (NotImplementedError, lambda: BalancedTrunk.from_params(
-            cfg_p, params_p, disp, quant="int8", device="cpu")),
-        "fp32": (NotImplementedError, lambda: BalancedTrunk.from_params(
-            cfg_p, params_p, disp, quant="fp32", device="cpu")),
-        "eager": (NotImplementedError, lambda: BalancedTrunk.from_params(
-            cfg_p, params_p, disp, mode="eager", device="cpu")),
         "bridge": (ValueError, lambda: BalancedTrunk.from_params(
             cfg_p, params_p, disp, mode="bridge", device="cpu")),
         "lanes": (NotImplementedError, lambda: ContinuousBatchingEngine(
@@ -311,8 +309,13 @@ def test_unported_paths_raise(model, case, monkeypatch):
             cfg_p, params_p, max_slots=2, max_seq=16, topology=object(),
             device="cpu")),
         "arch": (KeyError, lambda: get_config("granite-8b")),
-        "eager_call": (NotImplementedError, lambda: BalancedTrunk.from_params(
-            cfg_p, params_p, disp, device="cpu").head(torch.zeros(1, 64))),
+        "balanced_head": (NotImplementedError,
+                          lambda: ContinuousBatchingEngine(
+                              cfg_p, params_p, max_slots=2, max_seq=16,
+                              balanced_head=object(), device="cpu")),
+        "topology_dispatcher": (NotImplementedError,
+                                lambda: CompiledDispatcher(
+                                    SocketDispatcher(), device="cpu")),
         "no_card": (RuntimeError, lambda: init_params(
             cfg_p, torch.Generator(), device="cuda")),
     }

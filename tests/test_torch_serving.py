@@ -1,12 +1,16 @@
 """The slice as a whole: the port's continuous-batching engine over the
-compiled Q4 trunk against the reference's, on the CPU.
+balanced trunk against the reference's, on the CPU.
 
 Reduced llama2-7b (f32) with the reference's weights carried across, an
 ``ultra-125h`` virtual clock, two slots, prefill chunks of 4 and three
-seeded Poisson requests (the set-up of ``tests/test_compiled.py``).  The
+seeded Poisson requests (the set-up of ``tests/test_compiled.py``).  Every
+trunk runs both ways: compiled (the port's against the reference's
+``mode="compiled"``) and eager (the port's per-core shard dispatch against
+the reference's ``jit_bridge=False`` engine, its Q4 blocks pinned to the
+compiled ``bk``), for each of the Q4, int8 and fp32 weight paths.  The
 greedy tokens, every request's virtual-clock timeline, the latency report
 and every ratio table must be equal exactly: the clock and the tables are
-float64 numpy in both packages, and the Q4 projections differ only in the
+float64 numpy in both packages, and the projections differ only in the
 order of their f32 sums, far below what moves an argmax here.
 """
 
@@ -43,19 +47,23 @@ def weights():
     return cfg_r, cfg_p, params_r, params_p
 
 
-def _serve(pkg, weights, trunk: bool):
+def _serve(pkg, weights, quant, mode="compiled"):
+    """One serving run; ``quant`` None serves the dense model (no trunk)."""
     cfg_r, cfg_p, params_r, params_p = weights
     if pkg == "ref":
         cfg, params, serving = cfg_r, params_r, ref_serving
         disp = RefDisp.virtual("ultra-125h", execute=True)
-        bt = (RefTrunk.from_params(cfg, params, disp, quant="q4",
-                                   mode="compiled") if trunk else None)
+        trunk_kw = ({"mode": "compiled"} if mode == "compiled" else
+                    {"jit_bridge": False, "pin_q4_blocks": True})
+        bt = (RefTrunk.from_params(cfg, params, disp, quant=quant,
+                                   **trunk_kw) if quant else None)
         kw = {}
     else:
         cfg, params, serving = cfg_p, params_p, port_serving
-        disp = PortDisp.virtual("ultra-125h")
-        bt = (BalancedTrunk.from_params(cfg, params, disp, quant="q4",
-                                        device="cpu") if trunk else None)
+        disp = PortDisp.virtual("ultra-125h", execute=mode == "eager")
+        bt = (BalancedTrunk.from_params(cfg, params, disp, quant=quant,
+                                        mode=mode, device="cpu")
+              if quant else None)
         kw = {"device": "cpu"}
     engine = serving.ContinuousBatchingEngine(
         cfg, params, max_slots=2, max_seq=16, prefill_chunk=4,
@@ -72,22 +80,43 @@ def _serve(pkg, weights, trunk: bool):
     return requests, disp, engine, report, stats
 
 
+class _Runs(dict):
+    """(package, trunk) -> serving run, each made on first use."""
+
+    def __init__(self, weights):
+        super().__init__()
+        self.weights = weights
+
+    def __missing__(self, key):
+        pkg, trunk = key
+        quant, mode = trunk if trunk else (None, "compiled")
+        self[key] = _serve(pkg, self.weights, quant, mode)
+        return self[key]
+
+
 @pytest.fixture(scope="module")
 def runs(weights):
-    return {(pkg, trunk): _serve(pkg, weights, trunk)
-            for pkg in ("ref", "port") for trunk in (True, False)}
+    return _Runs(weights)
 
 
-@pytest.mark.parametrize("trunk", [True, False],
-                         ids=["compiled-q4-trunk", "dense"])
+# (quant, mode) of the balanced trunk; None serves the dense model.  The
+# ids of the first and last cases are those of the Q4-only tests before
+# the int8 and fp32 trunks and the eager mode were ported.
+TRUNKS = [("q4", "compiled"), ("int8", "compiled"), ("fp32", "compiled"),
+          ("q4", "eager"), ("int8", "eager"), ("fp32", "eager"), None]
+TRUNK_IDS = ["compiled-q4-trunk", "compiled-int8-trunk",
+             "compiled-fp32-trunk", "eager-q4-trunk", "eager-int8-trunk",
+             "eager-fp32-trunk", "dense"]
+
+
+@pytest.mark.parametrize("trunk", TRUNKS, ids=TRUNK_IDS)
 def test_greedy_tokens_equal(runs, trunk):
     ref, port = runs[("ref", trunk)][0], runs[("port", trunk)][0]
     assert [r.generated for r in ref] == [r.generated for r in port]
     assert all(r.n_generated == 4 for r in port)
 
 
-@pytest.mark.parametrize("trunk", [True, False],
-                         ids=["compiled-q4-trunk", "dense"])
+@pytest.mark.parametrize("trunk", TRUNKS, ids=TRUNK_IDS)
 def test_request_timelines_equal_exactly(runs, trunk):
     ref, port = runs[("ref", trunk)][0], runs[("port", trunk)][0]
     for a, b in zip(ref, port):
@@ -102,8 +131,7 @@ def test_request_timelines_equal_exactly(runs, trunk):
     assert ref_steps == port_steps
 
 
-@pytest.mark.parametrize("trunk", [True, False],
-                         ids=["compiled-q4-trunk", "dense"])
+@pytest.mark.parametrize("trunk", TRUNKS, ids=TRUNK_IDS)
 def test_latency_report_equal(runs, trunk):
     ref, port = runs[("ref", trunk)][3], runs[("port", trunk)][3]
     assert ref.to_dict() == port.to_dict()
@@ -112,8 +140,19 @@ def test_latency_report_equal(runs, trunk):
 
 def test_every_ratio_table_key_equal(runs):
     """The kernel dispatcher's per-(phase ISA x layer kind) tables, fed by
-    the compiled cost tape, and the phase cost model's tables."""
-    ref, port = runs[("ref", True)], runs[("port", True)]
+    the compiled Q4 cost tape, and the phase cost model's tables."""
+    _assert_tables_equal(runs[("ref", TRUNKS[0])], runs[("port", TRUNKS[0])])
+
+
+@pytest.mark.parametrize("trunk", TRUNKS[1:-1], ids=TRUNK_IDS[1:-1])
+def test_every_ratio_table_key_equal_for_each_trunk(runs, trunk):
+    """The same for the int8 and fp32 compiled trunks, and for the eager
+    trunks, whose projections plan and feed back when they are called
+    (the head only where a token is sampled)."""
+    _assert_tables_equal(runs[("ref", trunk)], runs[("port", trunk)])
+
+
+def _assert_tables_equal(ref, port):
     kinds = ("attn_proj", "mlp_up", "mlp_down", "head")
     want = {f"{isa}/{k}" for isa in ("avx_vnni", "membw") for k in kinds}
     assert want <= set(port[1].table.keys())
@@ -135,7 +174,7 @@ def test_engine_state_reused_per_admission_is_fresh(runs):
     """Each admission prefills into its own zeroed batch-1 state (the
     caches are written in place): after the run every slot is free and no
     partial state is left."""
-    engine = runs[("port", True)][2]
+    engine = runs[("port", TRUNKS[0])][2]
     assert engine.manager.n_free == engine.max_slots
     assert engine._partial is None
     assert not engine.has_work
@@ -162,13 +201,36 @@ def test_serve_cuda_without_a_card_raises(monkeypatch):
         port_serve.serve(args)
 
 
+@pytest.mark.parametrize("quant", ["int8", "fp32"])
+def test_serve_cli_tiny_on_cpu_other_trunks(capsys, quant):
+    rc = port_serve.main(["--device", "cpu", "--preset", "tiny",
+                          "--balanced-trunk", "--trunk-quant", quant,
+                          "--requests", "3", "--steps", "4",
+                          "--prompt-len", "6", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "finished 3/3 requests" in out
+    assert "trunk membw/mlp_up spread" in out
+
+
+def test_serve_run_records_every_iteration():
+    """``serve`` keeps each engine step's stats: a compiled trunk launches
+    225 projections per trunk call at full depth, so the chip smoke counts
+    kernel launches against these steps."""
+    args = port_serve.build_parser().parse_args(
+        ["--device", "cpu", "--balanced-trunk", "--requests", "3",
+         "--steps", "4", "--prompt-len", "6", "--batch", "2"])
+    run = port_serve.serve(args)
+    assert sum(s.prefill_tokens for s in run.iterations) == 3 * 6
+    assert sum(s.decode_tokens for s in run.iterations) == 3 * 3
+    assert run.iterations[-1].now == run.engines[0].now
+
+
 @pytest.mark.parametrize("flag", [["--fleet"], ["--legacy-batch"],
                                   ["--topology", "dual-125h"],
                                   ["--trace", "t.json"],
                                   ["--metrics", "m.prom"],
-                                  ["--flight-recorder", "f.json"],
-                                  ["--balanced-trunk", "--trunk-quant",
-                                   "int8"]])
+                                  ["--flight-recorder", "f.json"]])
 def test_unported_serve_modes_exit_with_a_message(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
         port_serve.main(["--device", "cpu", *flag])
