@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DETAIL.json]
+    python3 chip_smoke.py [--out DETAIL.json] [--phases all|kernels]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Every kernel of the main paths against its plain torch version on the
    card: ``q4_matmul`` within the reference's tolerances of
    ``q4_matmul_plain`` and ``q4_matmul_db`` bitwise equal to ``q4_matmul``,
-   at the main path's (N, K) shapes and M in {1, 4, 8} (f32) plus one bf16
-   case; ``int8_gemm`` bitwise equal to ``int8_gemm_plain`` at the same
+   at the main path's (N, K) shapes and M in {1, 4, 8}, f32 and bf16
+   (with each Q4 kernel's time at M = 8 over M = 1 and its time per decode
+   step); ``int8_gemm`` bitwise equal to ``int8_gemm_plain`` at the same
    shapes and M, at the reference's ragged shape (100, 120, 200) and with
    N = 0.  Then each one's time (CUDA events over 100+ launches, rotating
    over weight copies larger than the 50 MB L2) beside its bound, and, for
@@ -36,6 +37,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    step at full width, through the kernels and through their plain torch
    versions: Q4 logits within a stated tolerance, int8 logits bitwise.
 6. A JSON line with every kernel's numbers, then the device line.
+
+``--phases kernels`` runs phases 1 and 2 for the Q4 kernels only, then
+prints the device line: a quick check of a change to the Q4 kernels.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 False or when the checkout's ``src/repro_torch`` is not beside it.
@@ -157,10 +161,8 @@ def kernels_vs_plain(q4, quantize, q4_blocks) -> dict:
         copies = max(2, math.ceil(2 * L2_BYTES / wbytes))
         banks = [type(qw)(qw.packed.clone(), qw.scales.clone())
                  for _ in range(copies)]
-        cases = [(m, torch.float32) for m in (1, DECODE_M, 8)]
-        if label == "q/k/v/o":
-            cases.append((DECODE_M, torch.bfloat16))
-        for m, dt in cases:
+        for m, dt in [(m, dt) for dt in (torch.float32, torch.bfloat16)
+                      for m in (1, DECODE_M, 8)]:
             x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
             a = q4.q4_matmul(x, qw, bk)
             b = q4.q4_matmul_db(x, qw, bk)
@@ -192,11 +194,30 @@ def kernels_vs_plain(q4, quantize, q4_blocks) -> dict:
             say(f"[smoke] {label:11s} N={n:5d} K={k:5d} M={m} {row['dtype']:8s}"
                 f" bk={bk:3d} err={err:.3g}  direct {t_direct * 1e3:8.2f} us"
                 f"  db {t_db * 1e3:8.2f} us  plain {t_plain * 1e3:9.1f} us"
-                f"  bound {bnd * 1e3:6.2f} us ({by})  db/bound "
-                f"{bnd / t_db:.2f}  library: none")
+                f"  bound {bnd * 1e3:6.2f} us ({by})  time/bound direct "
+                f"{t_direct / bnd:.2f} db {t_db / bnd:.2f}  library: none")
         del banks, qw
     torch.cuda.empty_cache()
+    q4_summary(rows)
     return {"rows": rows, "max_abs_err": worst}
+
+
+def q4_summary(rows) -> None:
+    """Each kernel's f32 time at M = 8 over its time at M = 1 per shape, and
+    its time per decode step (the 225 launches at M = 4) beside the bound."""
+    f32 = {(r["shape"], r["m"]): r for r in rows if r["dtype"] == "float32"}
+    for name in KERNELS:
+        key = name + "_ms"
+        ratios = "  ".join(
+            f"{label} {f32[label, 8][key] / f32[label, 1][key]:.2f}"
+            for label, *_ in SHAPES)
+        step = sum(f32[label, DECODE_M][key] * per
+                   for label, _, _, per in SHAPES)
+        bound = sum(f32[label, DECODE_M]["bound_ms"] * per
+                    for label, _, _, per in SHAPES)
+        say(f"[smoke] {name}: time M=8 / M=1: {ratios}; decode step "
+            f"({PER_TRUNK_CALL} launches, M={DECODE_M}, f32) {step:.3f} ms, "
+            f"bound {bound:.3f} ms, time/bound {step / bound:.2f}")
 
 
 def i8_bound_ms(m: int, n: int, k: int) -> tuple:
@@ -716,6 +737,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--phases", choices=("all", "kernels"), default="all",
+                    help="kernels: only the header and the Q4 kernels "
+                         "against their plain version (a quick check of a "
+                         "kernel change); all (default): every phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -736,6 +761,16 @@ def main(argv=None) -> int:
     counts = Counts(q4, i8)
     head = header([q4, i8])
     phase2 = kernels_vs_plain(q4, quantize_q4_0, q4_blocks)
+    if args.phases == "kernels":
+        say(f"[smoke] kernels only: {time.perf_counter() - t_all:.1f} s on "
+            f"{head['card']}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": head["card"], "build_s": head["build_s"],
+                 "kernels": phase2["rows"]}, indent=1))
+        say(device_line())
+        return 0
     p2i8 = int8_vs_plain(i8)
     phase3 = serve_full_width(counts, serve_mod)
     np_rng = np.random.default_rng(0)
@@ -773,10 +808,14 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    say(device_line())
     return 0
+
+
+def device_line() -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

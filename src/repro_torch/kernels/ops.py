@@ -47,8 +47,9 @@ def fit_bk(k: int, bk: int) -> int:
 def q4_blocks(k: int) -> tuple:
     """The deterministic block config every Q4 launch of the port takes for
     a reduction dim ``k`` (compiled and eager alike) — DEFAULT_BLOCKS with
-    the ``bk`` fix-up.  The kernels read only its ``bk``, which fixes their
-    order of sums."""
+    the ``bk`` fix-up.  Only its ``bk`` is read: it sets the plain version's
+    order of sums; the CUDA kernels validate it and sum in an order set by
+    K alone."""
     bm, bn, bk = _q4.DEFAULT_BLOCKS
     return (bm, bn, fit_bk(k, bk))
 

@@ -3,15 +3,16 @@ Hopper, with their plain PyTorch version.
 
 Two kernels, one per Pallas TPU kernel of ``repro/kernels/q4_matmul.py``:
 
-* :func:`q4_matmul` replaces ``q4_matmul_pallas`` (tiles loaded straight
-  from global memory);
-* :func:`q4_matmul_db` replaces ``q4_matmul_pallas_db`` (tiles staged
-  through two shared-memory slots by ``cp.async``, tile k + 1 in flight
-  while tile k computes) — the kernel of every Q4 projection of compiled
-  balanced decode.
+* :func:`q4_matmul` replaces ``q4_matmul_pallas`` (weights loaded straight
+  into registers);
+* :func:`q4_matmul_db` replaces ``q4_matmul_pallas_db`` (weights staged
+  through a two-slot ``cp.async`` ring in shared memory, the next chunk in
+  flight while the current one computes) — the kernel of every Q4
+  projection of compiled balanced decode.
 
-Both are bit-identical at equal ``bk`` (one shared tile routine, one order
-of sums); see ``csrc/q4_matmul.cu`` for what bounds them and the design.
+Both entries run one kernel body with one order of sums, set by K alone,
+so they are bitwise equal at every shape and ``bk``; see
+``csrc/q4_matmul.cu`` for what bounds them and the design.
 
 The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first launch (:mod:`._build`: into
@@ -39,9 +40,9 @@ from . import _build
 __all__ = ["q4_matmul", "q4_matmul_db", "q4_matmul_plain", "compile_library",
            "reset_launch_counts", "DEFAULT_BLOCKS", "SOURCE"]
 
-# (bm, bn, bk): the reference's default block tuple.  The CUDA kernels fix
-# their own (rows x M) tile and read only bk, the K tile, which sets the
-# order of sums (bit-identity between the two kernels holds at equal bk).
+# (bm, bn, bk): the reference's default block tuple.  The plain version
+# reads bk, the K tile, which sets its order of sums; the CUDA kernels
+# only validate it.
 DEFAULT_BLOCKS = (8, 256, 512)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "q4_matmul.cu"
@@ -177,8 +178,8 @@ def q4_matmul(x: torch.Tensor, qw: QuantizedLinear, bk: int, *,
 def q4_matmul_db(x: torch.Tensor, qw: QuantizedLinear, bk: int, *,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The same product with the K stream double-buffered through shared
-    memory (replaces ``q4_matmul_pallas_db``); bit-identical to
-    :func:`q4_matmul` at equal ``bk``."""
+    memory (replaces ``q4_matmul_pallas_db``); bitwise equal to
+    :func:`q4_matmul` at every ``bk``."""
     if _route(x):
         return _plain(x, qw, bk, out)
     return _launch(q4_matmul_db, "q4_matmul_db", x, qw, bk, out)

@@ -55,8 +55,8 @@ def test_gpu_kernels_match_plain(cuda, m, n, k, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bk", [32, 64, 128, 256, 512, 1024])
 def test_gpu_db_bitwise_equal_at_every_bk(cuda, bk):
-    """Including bk = 32, where a row's scale tile is too small for
-    cp.async and the db kernel reads its scales directly."""
+    """Every K tile the kernels take, bk = 32 included; both kernels sum in
+    an order set by K alone."""
     gen = torch.Generator(device=cuda).manual_seed(bk)
     x = torch.randn((6, 2048), generator=gen, device=cuda)
     qw = quantize_q4_0(torch.randn((200, 2048), generator=gen, device=cuda))
@@ -65,6 +65,41 @@ def test_gpu_db_bitwise_equal_at_every_bk(cuda, bk):
     assert torch.equal(a, b)
     torch.testing.assert_close(a, K.q4_matmul_plain(x, qw, bk),
                                rtol=2e-5, atol=2e-5 * 2048)
+
+
+# (M, N, K, bk, dtype) across the Q4 kernels' geometry: N not a multiple
+# of a block's 32 rows, every M from 1 to 9 (one and two tiles of 8 x rows),
+# the partial last K chunk of K = 11008 (344 groups, chunks of 64), every bk
+# at K = 2048, bf16 x
+_GEOMETRY = (
+    [(m, 1000, 4096, 512, dt) for m in range(1, 10)
+     for dt in ("float32", "bfloat16")]
+    + [(4, 1000, 11008, 256, dt) for dt in ("float32", "bfloat16")]
+    + [(9, 1000, 2048, bk, "float32") for bk in (32, 64, 128, 256, 512, 1024)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,bk,dtype", _GEOMETRY)
+def test_gpu_q4_geometry(cuda, m, n, k, bk, dtype):
+    """Both Q4 kernels within the reference's tolerances of the plain
+    version and bitwise equal to each other, into a new output and into a
+    column slice of a wider one."""
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + k + bk)
+    tdt = getattr(torch, dtype)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(tdt)
+    qw = quantize_q4_0(torch.randn((n, k), generator=gen, device=cuda))
+    a = K.q4_matmul(x, qw, bk)
+    b = K.q4_matmul_db(x, qw, bk)
+    full = torch.full((m, n + 40), -7, dtype=tdt, device=cuda)
+    K.q4_matmul_db(x, qw, bk, out=full[:, 24:24 + n])
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(a.float(), K.q4_matmul_plain(x, qw, bk).float(),
+                               rtol=tol, atol=tol * k)
+    assert torch.equal(a, b)
+    assert torch.equal(full[:, 24:24 + n], a)
+    assert bool((full[:, :24] == -7).all()) and \
+        bool((full[:, 24 + n:] == -7).all())
 
 
 def _ints(m, n, k, device, seed):
