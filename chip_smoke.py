@@ -14,11 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    at the main path's (N, K) shapes and M in {1, 4, 8}, f32 and bf16
    (with each Q4 kernel's time at M = 8 over M = 1 and its time per decode
    step); ``int8_gemm`` bitwise equal to ``int8_gemm_plain`` at the same
-   shapes and M, at the reference's ragged shape (100, 120, 200) and with
-   N = 0.  Then each one's time (CUDA events over 100+ launches, rotating
-   over weight copies larger than the 50 MB L2) beside its bound, and, for
-   ``int8_gemm`` at M = 32, beside ``torch._int_mm`` (the one PyTorch call
-   that computes the product; it takes only M > 16).
+   shapes for M in {1, 4, 8, 16, 17, 32, 64} (both sides of the kernel's
+   M = 8 regime boundary), at the reference's ragged shape (100, 120, 200)
+   and with N = 0.  Then each one's time (CUDA events over 100+ launches,
+   rotating over weight copies larger than the 50 MB L2) beside its bound,
+   and, for ``int8_gemm`` at M = 32 and 64, beside ``torch._int_mm`` (the
+   one PyTorch call that computes the product; it takes only M > 16).
 3. The main paths end to end at full width: the port's serve path on
    llama2-7b (all 32 layers, bf16, compiled trunk and head, random weights
    from seed 0), 1 replica, 4 slots, 8 requests of 64 prompt tokens and 32
@@ -38,8 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions: Q4 logits within a stated tolerance, int8 logits bitwise.
 6. A JSON line with every kernel's numbers, then the device line.
 
-``--phases kernels`` runs phases 1 and 2 for the Q4 kernels only, then
-prints the device line: a quick check of a change to the Q4 kernels.
+``--phases kernels`` runs phases 1 and 2 only (every kernel against its
+plain version, with times), then prints the device line: a quick check of
+a change to any kernel.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 False or when the checkout's ``src/repro_torch`` is not beside it.
@@ -83,7 +85,9 @@ KERNELS = {
 SOURCE = "src/repro_torch/kernels/csrc/q4_matmul.cu"
 I8_REPLACES = "src/repro/kernels/int8_gemm.py:79"
 I8_SOURCE = "src/repro_torch/kernels/csrc/int8_gemm.cu"
-LIBRARY_M = 32        # torch._int_mm takes only M > 16
+I8_TIMED_M = (1, DECODE_M, 8, 32, 64)   # int8_gemm timed at these M
+I8_CHECKED_M = (1, DECODE_M, 8, 16, 17, 32, 64)   # and held bitwise at these
+LIBRARY_MS = (32, 64)   # torch._int_mm timed beside it (it takes M > 16)
 PER_TRUNK_CALL = sum(s[3] for s in SHAPES)   # 225 launches per trunk call
 
 
@@ -239,9 +243,10 @@ def int8_library(a_s8, w_s8, corr):
 
 def int8_vs_plain(i8) -> dict:
     """Phase 2 (int8): ``int8_gemm`` bitwise equal to ``int8_gemm_plain``
-    at the main path's shapes for M in {1, 4, 8} (and M = 32, where
-    ``torch._int_mm`` is timed beside it), at the reference's ragged shape,
-    at a ragged shape of the vector kernel, and with N = 0; then times."""
+    at the main path's shapes for every M of I8_CHECKED_M, at the
+    reference's ragged shape, at a ragged shape of the vector kernel, and
+    with N = 0; then its times at I8_TIMED_M (with ``torch._int_mm`` beside
+    it at LIBRARY_MS)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
 
     def ints(m, n, k):
@@ -274,7 +279,7 @@ def int8_vs_plain(i8) -> dict:
         copies = max(2, math.ceil(2 * L2_BYTES / w.numel()))
         banks = [w.clone() for _ in range(copies)]
         corr = 128 * torch.sum(w, dim=-1, dtype=torch.int32)[None, :]
-        for m in (1, DECODE_M, 8, LIBRARY_M):
+        for m in I8_CHECKED_M:
             a, _ = ints(m, 0, k)
             got, want = i8.int8_gemm(a, w), i8.int8_gemm_plain(a, w)
             torch.cuda.synchronize()
@@ -283,11 +288,15 @@ def int8_vs_plain(i8) -> dict:
             if not torch.equal(got, want):
                 raise AssertionError(f"int8_gemm != plain at {label} M={m}: "
                                      f"max abs err {err}")
+            if m not in I8_TIMED_M:
+                say(f"[smoke] int8 {label:11s} N={n:5d} K={k:5d} M={m:2d} "
+                    f"bitwise")
+                continue
             sets = [(a, bank) for bank in banks]
             t_kernel = device_ms(i8.int8_gemm, sets, 200)
             t_plain = device_ms(i8.int8_gemm_plain, sets, 10)
             t_lib = None
-            if m == LIBRARY_M:
+            if m in LIBRARY_MS:
                 a_s8 = (a ^ 0x80).view(torch.int8)      # a - 128 as s8
                 if not torch.equal(int8_library(a_s8, w, corr), want):
                     raise AssertionError(f"torch._int_mm yardstick differs "
@@ -308,7 +317,42 @@ def int8_vs_plain(i8) -> dict:
                 f"bound/kernel {bnd / t_kernel:.2f}  {lib}")
         del banks
     torch.cuda.empty_cache()
+    int8_summary(rows)
     return {"rows": rows, "max_abs_err": worst}
+
+
+def int8_summary(rows) -> None:
+    """Per shape: the kernel's share of its bound at M = 4 and its time at
+    M = 8 over M = 1; per decode step (225 launches) at each timed M: the
+    kernel, its bound and, where it runs, ``torch._int_mm``."""
+    at = {(r["shape"], r["m"]): r for r in rows}
+    labels = [s[0] for s in SHAPES]
+
+    def per_shape(fn) -> str:
+        return "  ".join(f"{label} {fn(label):.2f}" for label in labels)
+
+    shares = per_shape(lambda lab: at[lab, DECODE_M]["bound_ms"]
+                       / at[lab, DECODE_M]["int8_gemm_ms"])
+    flat = per_shape(lambda lab: at[lab, 8]["int8_gemm_ms"]
+                     / at[lab, 1]["int8_gemm_ms"])
+    say(f"[smoke] int8_gemm bound/kernel at M={DECODE_M}: {shares}; "
+        f"time M=8 / M=1: {flat}")
+    for m in I8_TIMED_M:
+        step = {key: sum(at[label, m][key] * per
+                         for label, _, _, per in SHAPES)
+                for key in ("int8_gemm_ms", "bound_ms", "library_ms")
+                if at[labels[0], m][key] is not None}
+        line = (f"[smoke] int8_gemm decode step ({PER_TRUNK_CALL} launches, "
+                f"M={m}): {step['int8_gemm_ms']:.3f} ms, bound "
+                f"{step['bound_ms']:.3f} ms, bound/kernel "
+                f"{step['bound_ms'] / step['int8_gemm_ms']:.2f}")
+        if "library_ms" in step:
+            ratios = per_shape(lambda lab: at[lab, m]["int8_gemm_ms"]
+                               / at[lab, m]["library_ms"])
+            ratio = step["int8_gemm_ms"] / step["library_ms"]
+            line += (f"; torch._int_mm {step['library_ms']:.3f} ms, "
+                     f"kernel/_int_mm {ratio:.2f} (per shape: {ratios})")
+        say(line)
 
 
 SERVE_ARGV = ["--arch", "llama2-7b", "--preset", "full", "--balanced-trunk",
@@ -725,11 +769,13 @@ def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         # torch._int_mm takes only M > 16: no PyTorch call computes the
-        # product at the serving path's M <= 8; at M = 32 it stands below
+        # product at the serving path's M <= 8; at M = 32 and 64 it stands
+        # below
         "library_ms": None, "per": per,
-        "at_m32": {"ms": step_sum(LIBRARY_M, "int8_gemm_ms"),
-                   "library_ms": step_sum(LIBRARY_M, "library_ms"),
-                   "library": "torch._int_mm on a - 128, + 128 * colsum"}})
+        **{f"at_m{m}": {"ms": step_sum(m, "int8_gemm_ms"),
+                        "library_ms": step_sum(m, "library_ms"),
+                        "library": "torch._int_mm on a - 128, + 128 * colsum"}
+           for m in LIBRARY_MS}})
     return entries
 
 
@@ -738,9 +784,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases", choices=("all", "kernels"), default="all",
-                    help="kernels: only the header and the Q4 kernels "
-                         "against their plain version (a quick check of a "
-                         "kernel change); all (default): every phase")
+                    help="kernels: only the header and every kernel "
+                         "against its plain version, with times (a quick "
+                         "check of a kernel change); all (default): every "
+                         "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -761,6 +808,7 @@ def main(argv=None) -> int:
     counts = Counts(q4, i8)
     head = header([q4, i8])
     phase2 = kernels_vs_plain(q4, quantize_q4_0, q4_blocks)
+    p2i8 = int8_vs_plain(i8)
     if args.phases == "kernels":
         say(f"[smoke] kernels only: {time.perf_counter() - t_all:.1f} s on "
             f"{head['card']}")
@@ -768,10 +816,10 @@ def main(argv=None) -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(
                 {"card": head["card"], "build_s": head["build_s"],
-                 "kernels": phase2["rows"]}, indent=1))
+                 "kernels": phase2["rows"],
+                 "int8": {"kernels": p2i8["rows"]}}, indent=1))
         say(device_line())
         return 0
-    p2i8 = int8_vs_plain(i8)
     phase3 = serve_full_width(counts, serve_mod)
     np_rng = np.random.default_rng(0)
     wall = decode_wall(phase3["run"], Request, np_rng, "q4")

@@ -199,3 +199,72 @@ def test_gpu_kernels_write_into_a_column_slice(cuda, kernel):
     assert torch.equal(full[:, 24:24 + n], want)
     assert bool((full[:, :24] == -7).all()) and \
         bool((full[:, 24 + n:] == -7).all())
+
+
+# Both regimes of the int8 kernel (one x tile of 8 rows for M <= 8; 2, 4
+# or 8 tiles above, so W streams once per 64 rows) and the bytes kernel
+# (K = 200): M on both sides of each tile boundary, N below and above a
+# block's rows, K of one partial step, whole steps, a 16-byte last step and
+# the main path's depths.
+_I8_M = [*range(1, 10), 15, 16, 17, 31, 32, 33, 64, 65, 100]
+_I8_K = (16, 32, 48, 4096, 4112, 11008, 200)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 1000, 4096])
+@pytest.mark.parametrize("m", _I8_M)
+def test_gpu_int8_gemm_regimes_bitwise(cuda, m, n):
+    for k in _I8_K:
+        a, w = _ints(m, n, k, cuda, seed=m * 131 + n + k)
+        before = I8.int8_gemm.launches
+        got = I8.int8_gemm(a, w)
+        torch.cuda.synchronize()
+        assert I8.int8_gemm.launches == before + 1, (m, n, k)
+        assert torch.equal(got, I8.int8_gemm_plain(a, w)), (m, n, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4096, 200], ids=["vector", "bytes"])
+@pytest.mark.parametrize("m", [4, 32])
+def test_gpu_int8_gemm_column_slice_both_regimes(cuda, m, k):
+    """Into a column slice of a wider output (ldc > N) at M = 4 and 32:
+    the plain version's bits, and nothing outside the slice written."""
+    n = 1000
+    a, w = _ints(m, n, k, cuda, seed=m + k)
+    full = torch.full((m, n + 40), -7, dtype=torch.int32, device=cuda)
+    I8.int8_gemm(a, w, out=full[:, 24:24 + n])
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, 24:24 + n], I8.int8_gemm_plain(a, w))
+    assert bool((full[:, :24] == -7).all()) and \
+        bool((full[:, 24 + n:] == -7).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32])
+def test_gpu_int8_gemm_extremes_both_regimes(cuda, m):
+    """255 x +-127 over K = 11008, the largest sums of the main path, in
+    both regimes: exact, every row and column."""
+    k, n = 11008, 48
+    a = torch.full((m, k), 255, dtype=torch.uint8, device=cuda)
+    sign = torch.tensor([1 if i % 3 else -1 for i in range(n)],
+                        dtype=torch.int32, device=cuda)
+    w = (127 * sign[:, None]).expand(n, k).to(torch.int8).contiguous()
+    got = I8.int8_gemm(a, w)
+    torch.cuda.synchronize()
+    want = (255 * 127 * k * sign).expand(m, n)
+    assert torch.equal(got, want)
+    assert torch.equal(got, I8.int8_gemm_plain(a, w))
+
+
+@pytest.mark.gpu
+def test_gpu_int8_eager_shards_equal_one_launch_at_m32(cuda):
+    """Per-core row shards of the int8 kernel at M = 32 (the tile regime)
+    against one launch over the whole output: bitwise."""
+    disp = HybridKernelDispatcher.virtual("ultra-125h", execute=True)
+    a, w = _ints(32, 11008, 4096, cuda, seed=9)
+    before = I8.int8_gemm.launches
+    acc = disp.int8_gemm(a, w)
+    torch.cuda.synchronize()
+    assert 0 < I8.int8_gemm.launches - before <= disp.n_workers
+    assert torch.equal(acc, I8.int8_gemm(a, w))
+    assert torch.equal(acc, I8.int8_gemm_plain(a, w))
