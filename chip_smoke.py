@@ -24,20 +24,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    llama2-7b (all 32 layers, bf16, compiled trunk and head, random weights
    from seed 0), 1 replica, 4 slots, 8 requests of 64 prompt tokens and 32
    new tokens, prefill chunks of 8, virtual clock ultra-125h — with the Q4
-   trunk (``q4_matmul_db``), the same traffic with the Q4 trunk on the
-   direct kernel (same tokens and timelines), and the same traffic with
-   the int8 trunk (``int8_gemm``, 225 launches per trunk call).  Every
-   launch count is set to 0 just before each run and read just after.
-   Then, for the Q4 and the int8 run, the wall-clock decode step
-   (torch.cuda.synchronize) and a short profile of it.
-4. Compiled against eager trunks at 2 layers of full width, for q4, int8
+   trunk (``q4_matmul_db``), its decode step one captured CUDA graph; the
+   same traffic uncaptured and with the Q4 trunk on the direct kernel
+   (captured), each with the same tokens and timelines; and the same
+   traffic with the int8 trunk (``int8_gemm``), captured and uncaptured.
+   225 launches per trunk call, graph replays included.  Every launch
+   count is set to 0 just before each run and read just after.  Then, for
+   Q4 and int8, captured and uncaptured, the wall-clock decode step
+   (torch.cuda.synchronize) split into the step body (the replay, by CUDA
+   events), the pick and the cost-tape feedback with the offset refresh,
+   and a short profile of it.
+4. Each main path against its plain path: one prefill chunk and one decode
+   step at full width, through the kernels and through their plain torch
+   versions: Q4 logits within a stated tolerance, int8 logits bitwise.
+5. Multi-lane prefill at full width: the same traffic with 4 prefill lanes
+   of 8-token chunks (M = 32 at the kernels), Q4 and int8, each with the
+   one-lane run's tokens (int8 exactly; Q4 where they part, at a logit gap
+   within the Q4 tolerance), 225 launches per trunk call; one prefill
+   chunk timed at 1 and 4 lanes.
+6. ``--balanced-head`` and ``--legacy-batch`` at 2 layers of full width:
+   the head as eager per-core Q4 shards (one ``q4_matmul`` launch per
+   non-empty shard, bitwise equal to one launch over the head) over a
+   captured dense step; one ``RoutedServer.serve_batch`` round.
+7. Compiled against eager trunks at 2 layers of full width, for q4, int8
    and fp32: the same virtual timelines, the same tokens (q4, int8), and
    one projection of each kind bitwise equal (q4, int8) or within a stated
    tolerance (fp32).
-5. Each main path against its plain path: one prefill chunk and one decode
-   step at full width, through the kernels and through their plain torch
-   versions: Q4 logits within a stated tolerance, int8 logits bitwise.
-6. A JSON line with every kernel's numbers, then the device line.
+8. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
@@ -360,6 +373,7 @@ SERVE_ARGV = ["--arch", "llama2-7b", "--preset", "full", "--balanced-trunk",
               "--requests", "8", "--prompt-len", "64", "--steps", "32",
               "--prefill-chunk", "8", "--machine", "ultra-125h",
               "--device", "cuda"]
+LANES = 4             # prefill lanes of the multi-lane runs: M = 4 x 8 = 32
 
 
 class Counts:
@@ -378,19 +392,23 @@ class Counts:
                 "int8_gemm": self.i8.int8_gemm.launches}
 
 
-def drive(counts, serve_mod, *, quant="q4", params=None,
-          double_buffer=True) -> dict:
-    """The port's serve path at full width (SERVE_ARGV with ``quant``),
-    with every launch count set to 0 just before the run and read just
-    after.  ``trunk_calls`` counts its trunk calls (one per prefill chunk
-    and one per decode step), each 225 launches of the trunk's kernel."""
+def drive(counts, serve_mod, *, quant="q4", params=None, double_buffer=True,
+          cuda_graph=True, lanes=1) -> dict:
+    """The port's serve path at full width (SERVE_ARGV with ``quant`` and
+    ``lanes`` prefill lanes), with every launch count set to 0 just before
+    the run and read just after.  ``cuda_graph=False`` runs its decode
+    steps uncaptured.  ``trunk_calls`` counts its trunk calls (one per
+    prefill iteration and one per decode step), each 225 launches of the
+    trunk's kernel."""
     argv = list(SERVE_ARGV)
     argv[argv.index("--trunk-quant") + 1] = quant
-    args = serve_mod.build_parser().parse_args(argv)
+    args = serve_mod.build_parser().parse_args(
+        argv + ["--prefill-lanes", str(lanes)])
     torch.cuda.reset_peak_memory_stats()
     counts.reset()
     t0 = time.perf_counter()
-    run = serve_mod.serve(args, params=params, double_buffer=double_buffer)
+    run = serve_mod.serve(args, params=params, double_buffer=double_buffer,
+                          cuda_graph=cuda_graph)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts.read()
@@ -400,6 +418,9 @@ def drive(counts, serve_mod, *, quant="q4", params=None,
                                                   for t in r.generated):
             raise AssertionError(f"request {r.request_id}: generated "
                                  f"{r.n_generated} tokens {r.generated[:4]}...")
+    if run.engines[0].captured != cuda_graph:
+        raise AssertionError(f"engine captured={run.engines[0].captured}, "
+                             f"asked for cuda_graph={cuda_graph}")
     trunk_calls = (sum(1 for it in run.iterations if it.prefill_tokens)
                    + sum(1 for it in run.iterations if it.decode_tokens))
     return {"args": args, "run": run, "launches": launches,
@@ -410,7 +431,8 @@ def drive(counts, serve_mod, *, quant="q4", params=None,
 
 def expect_launches(main: dict, kernel: str) -> None:
     """The run went through ``kernel`` and only through it: 225 launches
-    per trunk call (224 projections of 32 layers and the head)."""
+    per trunk call (224 projections of 32 layers and the head), graph
+    replays included."""
     got = main["launches"]
     want = PER_TRUNK_CALL * main["trunk_calls"]
     if got[kernel] <= 0 or got[kernel] != want:
@@ -422,40 +444,64 @@ def expect_launches(main: dict, kernel: str) -> None:
         raise AssertionError(f"the {kernel} run launched {others}")
 
 
+def assert_same_run(a, b, what: str) -> None:
+    """Two serving runs of the same traffic gave the same tokens, the same
+    virtual timeline of every request and the same iterations."""
+    fields = ("generated", "arrival_time", "admit_time", "first_token_time",
+              "finish_time")
+    for x, y in zip(a.requests, b.requests):
+        for f in fields:
+            if getattr(x, f) != getattr(y, f):
+                raise AssertionError(f"{what}: request {x.request_id} "
+                                     f"differs in {f}")
+    steps = [[(i.prefill_tokens, i.decode_tokens, i.now) for i in r.iterations]
+             for r in (a, b)]
+    if steps[0] != steps[1]:
+        raise AssertionError(f"{what}: the iterations differ")
+
+
 def serve_full_width(counts, serve_mod) -> dict:
-    """Phase 3: the main path (compiled trunk on q4_matmul_db) at full
-    width, then the same traffic with the trunk lowered onto the direct
-    q4_matmul.  The two kernels are bitwise equal, so both runs must give
-    the same tokens and the same virtual-clock timelines."""
+    """Phase 3: the main path (compiled trunk on q4_matmul_db, its decode
+    step one CUDA graph) at full width; the same traffic uncaptured; and
+    the same traffic with the trunk lowered onto the direct q4_matmul,
+    captured.  The two kernels are bitwise equal and a replay computes
+    what the uncaptured step does, so all three runs must give the same
+    tokens and the same virtual-clock timelines."""
     main = drive(counts, serve_mod)
     run = main["run"]
     for line in serve_mod.report_lines(main["args"], run):
         say(line)
+    graph = run.engines[0]._graph
     say(f"[smoke] main-path launches: {main['launches']} over "
-        f"{main['trunk_calls']} trunk calls (serve wall "
+        f"{main['trunk_calls']} trunk calls, {graph.replays} of them graph "
+        f"replays of {sum(graph.launches)} launches each (serve wall "
         f"{main['serve_wall_s']:.1f} s incl. weight init + Q4 quantization)")
     expect_launches(main, "q4_matmul_db")
     say(f"[smoke] peak device memory {main['peak_bytes'] / 2**30:.2f} GiB")
 
-    direct = drive(counts, serve_mod, params=run.engines[0].params,
-                   double_buffer=False)
+    params = run.engines[0].params
+    eager = drive(counts, serve_mod, params=params, cuda_graph=False)
+    expect_launches(eager, "q4_matmul_db")
+    assert_same_run(run, eager["run"], "q4 uncaptured vs captured")
+    say(f"[smoke] q4 uncaptured run: same tokens, timelines and launches "
+        f"({eager['launches']['q4_matmul_db']}) as the captured run (serve "
+        f"wall {eager['serve_wall_s']:.1f} s against "
+        f"{main['serve_wall_s']:.1f} s)")
+
+    direct = drive(counts, serve_mod, params=params, double_buffer=False)
     say(f"[smoke] direct-kernel path launches: {direct['launches']} "
         f"(serve wall {direct['serve_wall_s']:.1f} s)")
     expect_launches(direct, "q4_matmul")
-    for a, b in zip(run.requests, direct["run"].requests):
-        if a.generated != b.generated or a.finish_time != b.finish_time:
-            raise AssertionError(
-                f"request {a.request_id}: direct-kernel run differs from the "
-                f"double-buffered run ({a.generated[:4]} vs "
-                f"{b.generated[:4]}...)")
-    say("[smoke] direct-kernel run: same tokens and timelines as the main "
-        "path")
+    assert_same_run(run, direct["run"], "direct-kernel vs double-buffered")
+    say("[smoke] direct-kernel run (captured): same tokens and timelines as "
+        "the main path")
     launches = {"q4_matmul": direct["launches"]["q4_matmul"],
                 "q4_matmul_db": main["launches"]["q4_matmul_db"]}
-    out = {"run": run, "launches": launches,
+    out = {"run": run, "eager_run": eager["run"], "launches": launches,
            "trunk_calls": main["trunk_calls"],
            "peak_bytes": main["peak_bytes"],
            "serve_wall_s": main["serve_wall_s"],
+           "uncaptured_serve_wall_s": eager["serve_wall_s"],
            "direct_serve_wall_s": direct["serve_wall_s"]}
     del direct
     torch.cuda.empty_cache()
@@ -465,7 +511,8 @@ def serve_full_width(counts, serve_mod) -> dict:
 def serve_int8(counts, serve_mod, params) -> dict:
     """Phase 3 (int8): the same traffic through the compiled int8 trunk at
     full width (every projection and the head one int8_gemm launch between
-    u8 quantization and dequant), on the Q4 run's weights."""
+    u8 quantization and dequant), on the Q4 run's weights, captured and
+    uncaptured: the same tokens and timelines."""
     main = drive(counts, serve_mod, quant="int8", params=params)
     run = main["run"]
     for line in serve_mod.report_lines(main["args"], run):
@@ -476,10 +523,19 @@ def serve_int8(counts, serve_mod, params) -> dict:
     expect_launches(main, "int8_gemm")
     say(f"[smoke] int8 run peak device memory "
         f"{main['peak_bytes'] / 2**30:.2f} GiB")
-    return {"run": run, "launches": main["launches"]["int8_gemm"],
+    eager = drive(counts, serve_mod, quant="int8", params=params,
+                  cuda_graph=False)
+    expect_launches(eager, "int8_gemm")
+    assert_same_run(run, eager["run"], "int8 uncaptured vs captured")
+    say(f"[smoke] int8 uncaptured run: same tokens, timelines and launches "
+        f"as the captured run (serve wall {eager['serve_wall_s']:.1f} s "
+        f"against {main['serve_wall_s']:.1f} s)")
+    return {"run": run, "eager_run": eager["run"],
+            "launches": main["launches"]["int8_gemm"],
             "trunk_calls": main["trunk_calls"],
             "peak_bytes": main["peak_bytes"],
-            "serve_wall_s": main["serve_wall_s"]}
+            "serve_wall_s": main["serve_wall_s"],
+            "uncaptured_serve_wall_s": eager["serve_wall_s"]}
 
 
 def weight_bytes(trunk) -> int:
@@ -494,37 +550,111 @@ def weight_bytes(trunk) -> int:
     return total
 
 
+class StepParts:
+    """The parts of an engine's decode step, timed by wrapping its methods
+    on the instance: the step body (the graph replay when captured, with
+    its two small input copies) by CUDA events and by the host time it
+    takes to enqueue; the pick on the host (its copy to the host waits for
+    the body); and the cost-tape feedback with the offset refresh on the
+    host."""
+
+    KEYS = ("body_ms", "enqueue_ms", "pick_ms", "feedback_ms")
+
+    def __init__(self, engine):
+        self.engine, self.rows, self.cur = engine, [], {}
+        decode, sample, feedback = (engine._decode, engine._sample,
+                                    engine._feedback)
+
+        def timed_decode():
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            out = decode()
+            self.cur["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+            e1.record()
+            self.cur["events"] = (e0, e1)
+            return out
+
+        def timed_sample(logits, phase):
+            t0 = time.perf_counter()
+            out = sample(logits, phase)
+            self.cur["pick_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def timed_feedback(recs):
+            t0 = time.perf_counter()
+            feedback(recs)
+            self.cur["feedback_ms"] = (time.perf_counter() - t0) * 1e3
+
+        engine._decode, engine._sample, engine._feedback = (
+            timed_decode, timed_sample, timed_feedback)
+
+    def start(self) -> None:
+        self.cur = {}
+
+    def keep(self) -> None:
+        e0, e1 = self.cur.pop("events")
+        self.cur["body_ms"] = e0.elapsed_time(e1)
+        self.rows.append(self.cur)
+
+    def remove(self) -> None:
+        for name in ("_decode", "_sample", "_feedback"):
+            delattr(self.engine, name)
+
+    def medians(self) -> dict:
+        return {k: float(np.median([r[k] for r in self.rows]))
+                for k in self.KEYS}
+
+
 def decode_wall(run, Request, np_rng, label: str) -> dict:
     """Wall-clock decode steps of the served engine: 4 more requests (one
-    prefill chunk each, 32 new tokens), every step timed between
-    torch.cuda.synchronize() calls; the decode-only steps (all 4 slots
-    running, no prefill chunk) are the decode-step time.  Attention covers
-    the whole cache buffer whatever the context, so the short prompts do
-    not shorten the step."""
+    prefill chunk each, 32 new tokens; 16 on an uncaptured engine, whose
+    steps are slower), every step timed between
+    torch.cuda.synchronize() calls and split by StepParts; the decode-only
+    steps (all 4 slots running, no prefill chunk) are the decode-step
+    time.  Attention covers the whole cache buffer whatever the context,
+    so the short prompts do not shorten the step."""
     engine = run.engines[0]
     wbytes = weight_bytes(engine.balanced_trunk)
     for _ in range(4):
         engine.submit(Request(
             prompt=np_rng.integers(0, run.cfg.vocab_size, 8,
                                    dtype=np.int32),
-            max_new_tokens=32, arrival_time=engine.now))
+            max_new_tokens=32 if engine.captured else 16,
+            arrival_time=engine.now))
+    parts = StepParts(engine)
     times = []
-    while engine.has_work:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = engine.step()
-        torch.cuda.synchronize()
-        if st.prefill_tokens == 0 and st.decode_tokens == 4:
-            times.append(time.perf_counter() - t0)
+    try:
+        while engine.has_work:
+            torch.cuda.synchronize()
+            parts.start()
+            t0 = time.perf_counter()
+            st = engine.step()
+            torch.cuda.synchronize()
+            if st.prefill_tokens == 0 and st.decode_tokens == 4:
+                times.append(time.perf_counter() - t0)
+                parts.keep()
+    finally:
+        parts.remove()
     if len(times) < 8:
         raise AssertionError(f"only {len(times)} decode-only steps")
     step = float(np.median(times))
-    say(f"[smoke] {label} decode step (4 slots, wall, median of "
-        f"{len(times)}): "
-        f"{step * 1e3:.2f} ms; weights {wbytes / 1e9:.3f} GB per step -> "
-        f"{wbytes / step / 1e9:.1f} GB/s = {wbytes / step / HBM_BYTES_PER_S:.4f}"
-        f" of 3.35 TB/s")
-    return {"decode_step_ms": step * 1e3, "decode_steps": len(times),
+    med = parts.medians()
+    other = step * 1e3 - med["enqueue_ms"] - med["pick_ms"] - med["feedback_ms"]
+    mode = "captured" if engine.captured else "uncaptured"
+    say(f"[smoke] {label} decode step, {mode} (4 slots, wall, median of "
+        f"{len(times)}): {step * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, "
+        f"max {max(times) * 1e3:.2f}); body {med['body_ms']:.2f} ms by CUDA "
+        f"events, {med['enqueue_ms']:.2f} ms to enqueue; pick "
+        f"{med['pick_ms']:.2f} ms (waits for the body); feedback + refresh "
+        f"{med['feedback_ms']:.2f} ms; rest {other:.2f} ms; weights "
+        f"{wbytes / 1e9:.3f} GB per step -> {wbytes / step / 1e9:.1f} GB/s = "
+        f"{wbytes / step / HBM_BYTES_PER_S:.4f} of 3.35 TB/s")
+    return {"captured": engine.captured, "decode_step_ms": step * 1e3,
+            "decode_step_min_ms": min(times) * 1e3,
+            "decode_step_max_ms": max(times) * 1e3,
+            "decode_steps": len(times), **med, "rest_ms": other,
             "weight_bytes_per_step": wbytes,
             "weight_gb_per_s": wbytes / step / 1e9}
 
@@ -532,7 +662,8 @@ def decode_wall(run, Request, np_rng, label: str) -> dict:
 def profile_decode(run, Request, np_rng, label: str) -> dict:
     """Device time by kernel over 3 decode-only steps (torch.profiler).
     Only the device's own events are summed (kernels, copies, memsets):
-    an operator's device time is its kernels' time, counted once there."""
+    an operator's device time is its kernels' time, counted once there.
+    The kernels of a graph replay appear under their own names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -559,16 +690,212 @@ def profile_decode(run, Request, np_rng, label: str) -> dict:
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     avgs = [(name, us, n) for name, (us, n) in by_name.items()]
     total = sum(t for _, t, _ in avgs)  # microseconds
-    say(f"[smoke] {label} profile of 3 decode steps: wall "
+    mode = "captured" if engine.captured else "uncaptured"
+    say(f"[smoke] {label} profile of 3 decode steps, {mode}: wall "
         f"{wall * 1e3:.1f} ms, "
         f"device busy {total / 1e3:.1f} ms "
-        f"({total / 1e6 / wall if wall else 0:.3f} of wall)")
+        f"({total / 1e6 / wall if wall else 0:.3f} of wall), "
+        f"{sum(n for _, _, n in avgs)} device events")
     top = sorted(avgs, key=lambda a: -a[1])[:8]
     for key, t, count in top:
         say(f"[smoke]   {t / 1e3:8.2f} ms  x{count:5d}  {key[:90]}")
-    return {"profile_wall_ms": wall * 1e3, "device_busy_ms": total / 1e3,
+    return {"captured": engine.captured, "profile_wall_ms": wall * 1e3,
+            "device_busy_ms": total / 1e3,
+            "device_events": sum(n for _, _, n in avgs),
             "top": [{"kernel": k, "device_ms": t / 1e3, "count": c}
                     for k, t, c in top]}
+
+
+def prefill_chunk_ms(engine, init_state, init_slot_state, np_rng,
+                     lanes: int, reps: int = 5) -> dict:
+    """One prefill chunk of 8 tokens per lane through the engine's trunk
+    call (uncaptured, as the engine runs it), from fresh caches: the
+    median host time (ending in a synchronize) and CUDA-event time of
+    ``reps`` chunks after one warm-up.  One lane is the batch-1 state at
+    one offset; several lanes are one B-row state with per-row offsets,
+    the form the lanes are stacked into."""
+    from repro_torch.serving import PREFILL
+
+    cfg, dev = engine.cfg, engine.device
+    host, events = [], []
+    for rep in range(reps + 1):
+        if lanes == 1:
+            state = init_state(cfg, 1, engine.max_seq, device=dev)
+            pos = torch.tensor(0, dtype=torch.int32, device=dev)
+        else:
+            state = init_slot_state(cfg, lanes, engine.max_seq, device=dev)
+            pos = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        tokens = torch.as_tensor(
+            np_rng.integers(0, cfg.vocab_size, (lanes, 8), dtype=np.int32),
+            device=dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        t0 = time.perf_counter()
+        engine._run(tokens, state, pos, PREFILL, lanes=lanes > 1)
+        e1.record()
+        torch.cuda.synchronize()
+        if rep:
+            host.append((time.perf_counter() - t0) * 1e3)
+            events.append(e0.elapsed_time(e1))
+        del state
+    ms = float(np.median(host))
+    return {"lanes": lanes, "m": 8 * lanes, "host_ms": ms,
+            "events_ms": float(np.median(events)),
+            "tokens_per_s": 8 * lanes / ms * 1e3}
+
+
+def logit_gap(engine, init_state, a, b) -> float:
+    """Where two runs' tokens for one prompt first part: |logit(token a) -
+    logit(token b)| / max|logit| of the first run's context there, through
+    the engine's trunk in one prefill call."""
+    from repro_torch.serving import PREFILL
+
+    i = next(j for j, (x, y) in enumerate(zip(a.generated, b.generated))
+             if x != y)
+    ctx = np.concatenate([a.prompt, np.asarray(a.generated[:i], np.int32)])
+    state = init_state(engine.cfg, 1, engine.max_seq, device=engine.device)
+    logits, _, _ = engine._run(
+        torch.as_tensor(ctx[None, :], device=engine.device), state,
+        torch.tensor(0, dtype=torch.int32, device=engine.device), PREFILL)
+    lg = logits[0].float()
+    return float((lg[a.generated[i]] - lg[b.generated[i]]).abs()
+                 / lg.abs().max())
+
+
+def serve_lanes(counts, serve_mod, params, one_lane, init_state,
+                init_slot_state, np_rng, quant: str, kernel: str) -> dict:
+    """Multi-lane prefill at full width: the main traffic with LANES prefill
+    lanes (chunks of 8, so the lanes reach the kernels at M = 32), captured
+    decode.  Its greedy tokens must equal the one-lane run's: exactly for
+    int8; for Q4, a request whose tokens part must part at a near-tie,
+    within Q4_VS_PLAIN_TOL of max |logit|.  Then one prefill chunk timed
+    at 1 and LANES lanes."""
+    main = drive(counts, serve_mod, quant=quant, params=params, lanes=LANES)
+    run = main["run"]
+    expect_launches(main, kernel)
+    at = sorted({it.prefill_tokens // 8 for it in run.iterations
+                 if it.prefill_tokens})
+    if LANES not in at:
+        raise AssertionError(f"{quant} lanes run: no iteration prefilled "
+                             f"{LANES} lanes (lane counts {at})")
+    gaps = {a.request_id: logit_gap(run.engines[0], init_state, a, b)
+            for a, b in zip(one_lane.requests, run.requests)
+            if a.generated != b.generated}
+    if quant == "int8" and gaps:
+        raise AssertionError(f"int8 {LANES}-lane tokens differ from one "
+                             f"lane's: logit gaps where they part {gaps}")
+    if any(g > Q4_VS_PLAIN_TOL for g in gaps.values()):
+        raise AssertionError(f"{quant} {LANES}-lane tokens part from one "
+                             f"lane's beyond a near-tie: gaps {gaps}")
+    timing = [prefill_chunk_ms(run.engines[0], init_state, init_slot_state,
+                               np_rng, n) for n in (1, LANES)]
+    one, many = timing
+    say(f"[smoke] {quant} {LANES}-lane prefill run: launches "
+        f"{main['launches'][kernel]} = {PER_TRUNK_CALL} x "
+        f"{main['trunk_calls']} trunk calls, lane counts {at}, "
+        f"{sum(1 for it in run.iterations if it.prefill_tokens == 8 * LANES)}"
+        f" iterations at M = {8 * LANES}; tokens equal one lane's: "
+        f"{not gaps}" + (f" (logit gaps where they part: {gaps})"
+                         if gaps else "")
+        + f"; serve wall {main['serve_wall_s']:.1f} s")
+    say(f"[smoke] {quant} prefill chunk of 8 tokens per lane, uncaptured: "
+        f"1 lane {one['host_ms']:.2f} ms ({one['events_ms']:.2f} by events), "
+        f"{LANES} lanes {many['host_ms']:.2f} ms ({many['events_ms']:.2f}), "
+        f"{one['tokens_per_s']:.0f} -> {many['tokens_per_s']:.0f} prompt "
+        f"tokens/s")
+    out = {"launches": main["launches"][kernel],
+           "trunk_calls": main["trunk_calls"], "lane_counts": at,
+           "tokens_equal": not gaps, "logit_gaps": gaps,
+           "serve_wall_s": main["serve_wall_s"], "prefill_chunk": timing}
+    del run, main
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_layers(params) -> tuple:
+    """llama2-7b at full width cut to 2 layers, with its first 2 layers'
+    weights (views)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama2-7b"), n_layers=2)
+    return cfg, slice_layers(params, cfg.n_layers)
+
+
+def balanced_head_phase(counts, serve_mod, params, q4, q4_blocks) -> dict:
+    """``--balanced-head`` at 2 layers of full width: the dense trunk's
+    decode step captured, the head as eager per-core Q4 shards outside it,
+    one q4_matmul launch per non-empty core shard; the sharded head equal
+    to one launch of each Q4 kernel over the whole head, bitwise."""
+    from repro_torch.kernels.dispatch import HybridKernelDispatcher
+
+    cfg, params2 = two_layers(params)
+    argv = [a for a in SERVE_ARGV if a != "--balanced-trunk"]
+    argv[argv.index("--requests") + 1] = "4"
+    argv[argv.index("--prompt-len") + 1] = "16"
+    argv[argv.index("--steps") + 1] = "8"
+    args = serve_mod.build_parser().parse_args(argv + ["--balanced-head"])
+    shards = []
+    plain_call = HybridKernelDispatcher.q4_matmul
+
+    def counted(self, *a, **k):
+        y = plain_call(self, *a, **k)
+        shards.append(int((self.last_stats.counts > 0).sum()))
+        return y
+
+    HybridKernelDispatcher.q4_matmul = counted
+    try:
+        counts.reset()
+        run = serve_mod.serve(args, params=params2, cfg=cfg)
+        torch.cuda.synchronize()
+        got = counts.read()
+    finally:
+        HybridKernelDispatcher.q4_matmul = plain_call
+    for line in serve_mod.report_lines(args, run):
+        say(line)
+    sampled = (len(run.requests)
+               + sum(1 for it in run.iterations if it.decode_tokens))
+    want = {"q4_matmul": sum(shards), "q4_matmul_db": 0, "int8_gemm": 0}
+    if len(shards) != sampled or got != want or not run.engines[0].captured:
+        raise AssertionError(f"balanced head: {len(shards)} head calls for "
+                             f"{sampled} sampled steps, launches {got} "
+                             f"against {want}")
+    head = run.engines[0].balanced_head
+    x = torch.randn((DECODE_M, cfg.d_model),
+                    generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    y = head(x, isa="membw")
+    bk = q4_blocks(cfg.d_model)[2]
+    for name in ("q4_matmul", "q4_matmul_db"):
+        if not torch.equal(y, getattr(q4, name)(x, head.qw, bk)):
+            raise AssertionError(f"balanced head shards != {name} bitwise")
+    say(f"[smoke] balanced head (2 layers, full width): {len(shards)} head "
+        f"calls, {got['q4_matmul']} q4_matmul launches = their non-empty "
+        f"core shards ({min(shards)}-{max(shards)} per call); shards "
+        f"bitwise equal to one q4_matmul and one q4_matmul_db launch")
+    return {"head_calls": len(shards), "launches": got["q4_matmul"],
+            "shards_per_call": [min(shards), max(shards)]}
+
+
+def legacy_phase(serve_mod, params) -> dict:
+    """``--legacy-batch`` at 2 layers of full width: one seed-era
+    ``RoutedServer.serve_batch`` round over 2 static-batch replicas."""
+    cfg, params2 = two_layers(params)
+    args = serve_mod.build_parser().parse_args(
+        ["--arch", "llama2-7b", "--legacy-batch", "--replicas", "2",
+         "--batch", "4", "--prompt-len", "16", "--steps", "8",
+         "--device", "cuda"])
+    run = serve_mod.serve_legacy(args, params=params2, cfg=cfg)
+    for line in serve_mod.legacy_lines(run):
+        say(line)
+    toks = run.tokens
+    if (toks.shape != (4, 24) or int(run.counts.sum()) != 4
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size):
+        raise AssertionError(f"legacy round: shape {toks.shape}, counts "
+                             f"{run.counts.tolist()}")
+    return {"counts": run.counts.tolist(), "shape": list(toks.shape),
+            "times_s": run.times.tolist()}
 
 
 def main_path_vs_plain(run, forward, init_state, np_rng, label: str,
@@ -798,7 +1125,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import q4_matmul as q4
     from repro_torch.kernels.compiled import q4_blocks
     from repro_torch.launch import serve as serve_mod
-    from repro_torch.models import forward, init_state
+    from repro_torch.models import forward, init_slot_state, init_state
     from repro_torch.quant.q4 import quantize_q4_0
     from repro_torch.serving import Request
 
@@ -822,16 +1149,31 @@ def main(argv=None) -> int:
         return 0
     phase3 = serve_full_width(counts, serve_mod)
     np_rng = np.random.default_rng(0)
-    wall = decode_wall(phase3["run"], Request, np_rng, "q4")
-    prof = profile_decode(phase3["run"], Request, np_rng, "q4")
+    wall, prof = {}, {}
+    for mode, key in (("captured", "run"), ("uncaptured", "eager_run")):
+        wall[mode] = decode_wall(phase3[key], Request, np_rng, "q4")
+        prof[mode] = profile_decode(phase3[key], Request, np_rng, "q4")
+    del phase3["eager_run"]
     phase5 = main_path_vs_plain(phase3["run"], forward, init_state, np_rng,
                                 "q4", Q4_VS_PLAIN_TOL)
     params = phase3["run"].engines[0].params
     p3i8 = serve_int8(counts, serve_mod, params)
-    wall_i8 = decode_wall(p3i8["run"], Request, np_rng, "int8")
-    prof_i8 = profile_decode(p3i8["run"], Request, np_rng, "int8")
+    wall_i8, prof_i8 = {}, {}
+    for mode, key in (("captured", "run"), ("uncaptured", "eager_run")):
+        wall_i8[mode] = decode_wall(p3i8[key], Request, np_rng, "int8")
+        prof_i8[mode] = profile_decode(p3i8[key], Request, np_rng, "int8")
+    del p3i8["eager_run"]
     p5i8 = main_path_vs_plain(p3i8["run"], forward, init_state, np_rng,
                               "int8", INT8_VS_PLAIN_TOL)
+    torch.cuda.empty_cache()
+    lanes = {"q4": serve_lanes(counts, serve_mod, params, phase3["run"],
+                               init_state, init_slot_state, np_rng, "q4",
+                               "q4_matmul_db"),
+             "int8": serve_lanes(counts, serve_mod, params, p3i8["run"],
+                                 init_state, init_slot_state, np_rng, "int8",
+                                 "int8_gemm")}
+    bhead = balanced_head_phase(counts, serve_mod, params, q4, q4_blocks)
+    legacy = legacy_phase(serve_mod, params)
     phase4 = eager_vs_compiled(params)
     entries = kernel_entries(phase2, phase3["launches"], p2i8,
                              p3i8["launches"])
@@ -842,6 +1184,8 @@ def main(argv=None) -> int:
                   "trunk_calls": phase3["trunk_calls"],
                   "peak_bytes": phase3["peak_bytes"],
                   "serve_wall_s": phase3["serve_wall_s"],
+                  "uncaptured_serve_wall_s":
+                      phase3["uncaptured_serve_wall_s"],
                   "report": phase3["run"].report.to_dict(),
                   "decode": wall, "profile": prof, "vs_plain": phase5,
                   "int8": {"kernels": p2i8["rows"],
@@ -849,9 +1193,12 @@ def main(argv=None) -> int:
                            "trunk_calls": p3i8["trunk_calls"],
                            "peak_bytes": p3i8["peak_bytes"],
                            "serve_wall_s": p3i8["serve_wall_s"],
+                           "uncaptured_serve_wall_s":
+                               p3i8["uncaptured_serve_wall_s"],
                            "report": p3i8["run"].report.to_dict(),
                            "decode": wall_i8, "profile": prof_i8,
                            "vs_plain": p5i8},
+                  "lanes": lanes, "balanced_head": bhead, "legacy": legacy,
                   "eager_vs_compiled": phase4}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))

@@ -9,7 +9,8 @@ dispatcher (eager shards and the compiled feedback replay),
 ``compiled.py`` the offsets-in / cost-tape-out lowering of every trunk
 projection.  (The front end is not re-exported here:
 ``repro_torch.kernels.q4_matmul`` and ``repro_torch.kernels.int8_gemm``
-name the kernel modules.)
+name the kernel modules.)  :data:`COUNTED` lists every wrapper that
+counts its launches.
 """
 
 from .dispatch import (
@@ -21,9 +22,15 @@ from .dispatch import (
 )
 from .compiled import CompiledDispatcher, CompiledSpec, q4_blocks
 from . import ref
+from . import int8_gemm as _i8
+from . import q4_matmul as _q4
+
+# every kernel wrapper that counts its launches in ``.launches``
+COUNTED = (_q4.q4_matmul, _q4.q4_matmul_db, _i8.int8_gemm)
 
 __all__ = [
     "ref",
+    "COUNTED",
     "HybridKernelDispatcher",
     "GEMM_ISA",
     "GEMV_ISA",

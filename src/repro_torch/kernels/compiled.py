@@ -5,9 +5,10 @@ The paper's measure -> EMA -> split loop is split across the step the way
 the paper splits it across the parallel region:
 
 * **Before the step** (host): the ratio table is planned once per call
-  site and materialized as int32 boundary tensors on the device — an
-  :class:`~repro_torch.runtime.OffsetSnapshot` — passed *as arguments* into
-  the step.  Balance is decided before the parallel work starts.
+  site and written into int32 boundary tensors on the device — an
+  :class:`~repro_torch.runtime.OffsetSnapshot`, whose tensors keep their
+  addresses from step to step — passed *as arguments* into the step.
+  Balance is decided before the parallel work starts.
 * **Inside the step** (device): every projection is ONE launch over the
   full (M, N) output — the double-buffered Q4 CUDA kernel
   (:func:`~repro_torch.kernels.q4_matmul.q4_matmul_db`), the u8 x s8 CUDA
@@ -15,8 +16,12 @@ the paper splits it across the parallel region:
   dynamic u8 quantization and its dequant, or, for the fp32 trunk, one
   ``torch.matmul``.  Core ``c`` owns output rows
   ``[b[c], b[c+1])`` of the boundary tensor; the per-core shard sizes (the
-  boundary differences, a device tensor) are appended to the step's cost
-  tape — nothing is read back to the host inside the step.
+  boundary differences, computed inside the step once per call site) are
+  appended to the step's cost tape — nothing is read back to the host
+  inside the step.  When the engine captures the decode step as a CUDA
+  graph (:mod:`repro_torch.serving.step_graph`), the records made while
+  capturing are the tape of every replay: each replay recomputes their
+  size tensors, in the graph's memory, from the refreshed boundaries.
 * **After the step** (host): :meth:`CompiledDispatcher.feedback` copies the
   tape's sizes to the host once, replays each recorded region through the
   dispatcher's virtual worker pools — same per-core time model, same Eq. 2
@@ -108,8 +113,8 @@ class CompiledDispatcher:
         self._by_name: Dict[str, CompiledSpec] = {}
         self._tape: Optional[list] = None
         # boundary tensor id -> (tensor, shard sizes): every projection of
-        # one spec in a step shares one snapshot, so its sizes are computed
-        # once per snapshot, not once per launch
+        # one spec in a step reads one boundary tensor, so its sizes are
+        # computed once per step (inside it), not once per launch
         self._sizes: Dict[int, tuple] = {}
 
     # -------------------------------------------------------- registration --
@@ -167,15 +172,16 @@ class CompiledDispatcher:
 
     def refresh(self) -> Dict[str, torch.Tensor]:
         """Re-plan every registered call site from the current ratio
-        tables; returns the new device offset snapshot (pass it into the
-        next step)."""
-        self._sizes.clear()
+        tables; returns the device offset snapshot, rewritten in place
+        (pass it into the next step)."""
         return self.snapshot.refresh()
 
     # ----------------------------------------------------------- cost tape --
     def tape_begin(self) -> list:
         """Open the cost tape (call at the top of a step).  Every compiled
-        projection until :meth:`tape_end` appends its per-core shard sizes."""
+        projection until :meth:`tape_end` appends its per-core shard sizes,
+        computed afresh in this step."""
+        self._sizes.clear()
         self._tape = []
         return self._tape
 

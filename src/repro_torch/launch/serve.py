@@ -15,10 +15,17 @@ with ``--trunk-quant int8`` the u8 x s8 CUDA kernel, or with
 ``--trunk-quant fp32`` one ``torch.matmul`` — with per-phase x
 per-layer-kind ratio tables fed from the step's cost tape.
 
+``--balanced-head`` runs only the LM head as balanced per-core Q4 shards
+(one direct-kernel launch per core, outside the decode step);
+``--prefill-lanes N`` prefills up to N admitted prompts per iteration in
+one batched trunk call; ``--legacy-batch`` runs one round of the seed-era
+whole-batch ``RoutedServer.serve_batch``.  On the card the decode step of
+a compiled trunk (or of the dense model) runs as one captured CUDA graph.
+
 ``--device cpu`` runs the same path with the kernels' plain torch version.
-The fleet, legacy whole-batch and topology modes, the balanced-head-only
-mode, the kernel-tuner cache and the observability exporters are not
-ported yet: those flags exit with a message.
+The fleet and topology modes, the kernel-tuner cache and the
+observability exporters are not ported yet: those flags exit with a
+message.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from repro_torch.kernels import (
     HybridKernelDispatcher,
     kernel_key,
 )
-from repro_torch.models import BalancedTrunk, init_params
+from repro_torch.models import BalancedTrunk, balanced_lm_head, init_params
 from repro_torch.runtime import RatioStore, RatioTable
 from repro_torch.serving import (
     DECODE,
@@ -50,18 +57,18 @@ from repro_torch.serving import (
     InflightDispatcher,
     LatencyReport,
     Request,
+    RoutedServer,
+    ServeEngine,
     poisson_requests,
 )
 
 # flag -> what it needs that the port does not carry yet
 NOT_PORTED = {
-    "legacy_batch": "the seed-era whole-batch RoutedServer",
     "fleet": "the fleet package",
     "topology": "the topology package",
     "trace": "the observability exporters",
     "metrics": "the observability exporters",
     "flight_recorder": "the observability exporters",
-    "balanced_head": "eager per-core shard dispatch of the head",
     "tuner_cache": "the kernel tuner front end (TunedMatmul)",
 }
 
@@ -94,6 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="open-loop Poisson arrival rate, req/s (0: all at t=0)")
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="prompt tokens prefilled per iteration (0: one-shot)")
+    ap.add_argument("--prefill-lanes", type=int, default=1,
+                    help="admitted prompts prefilled together, one batched "
+                         "trunk call per iteration")
     ap.add_argument("--machine", default=None,
                     choices=sorted(MACHINES) + ["wall"],
                     help="virtual hybrid-CPU clock (default ultra-125h), "
@@ -111,7 +121,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="balanced-trunk weight path: Q4_0 CUDA GEMV, "
                          "dynamic-u8 x s8 CUDA GEMM, or fp32 torch.matmul")
     ap.add_argument("--legacy-batch", action="store_true",
-                    help="(not ported yet)")
+                    help="run the seed-era whole-batch serve_batch path")
     ap.add_argument("--fleet", action="store_true", help="(not ported yet)")
     ap.add_argument("--topology", default=None, help="(not ported yet)")
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -121,7 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--flight-recorder", default=None, metavar="PATH",
                     help="(not ported yet)")
     ap.add_argument("--balanced-head", action="store_true",
-                    help="(not ported yet)")
+                    help="run the LM head as balanced per-core Q4 kernel "
+                         "shards (hybrid kernel dispatch) instead of inside "
+                         "the decode step")
     ap.add_argument("--tuner-cache", default=None, help="(not ported yet)")
     return ap
 
@@ -132,9 +144,14 @@ def check_ported(args) -> None:
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(needs {needs})")
-    if args.balanced_trunk and args.machine == "wall":
-        raise SystemExit("--machine wall with --balanced-trunk is not "
-                         "ported yet (needs the threaded dispatcher)")
+    if args.balanced_head and args.balanced_trunk:
+        raise SystemExit("--balanced-trunk already includes the head; "
+                         "drop --balanced-head")
+    for flag in ("balanced_trunk", "balanced_head"):
+        if getattr(args, flag) and args.machine == "wall":
+            raise SystemExit(f"--machine wall with "
+                             f"--{flag.replace('_', '-')} is not ported yet "
+                             f"(needs the threaded dispatcher)")
 
 
 @dataclass
@@ -155,11 +172,13 @@ class ServeRun:
 
 
 def build_engines(args, cfg, params, device, *,
-                  double_buffer: bool = True) -> tuple:
-    """One continuous-batching engine (and, with ``--balanced-trunk``, one
-    virtual-clock kernel dispatcher) per replica.  ``double_buffer=False``
-    lowers a Q4 trunk onto the direct kernel instead of the
-    double-buffered one."""
+                  double_buffer: bool = True,
+                  cuda_graph: bool = True) -> tuple:
+    """One continuous-batching engine (and, with ``--balanced-trunk`` or
+    ``--balanced-head``, one virtual-clock kernel dispatcher) per replica.
+    ``double_buffer=False`` lowers a Q4 trunk onto the direct kernel
+    instead of the double-buffered one; ``cuda_graph=False`` runs the
+    decode step uncaptured on the card."""
     chunk = args.prefill_chunk if args.prefill_chunk > 0 else None
     max_seq = args.prompt_len + args.steps + 8
     engines, dispatchers = [], []
@@ -167,7 +186,7 @@ def build_engines(args, cfg, params, device, *,
                                                     args.replicas)):
         cost = (None if args.machine == "wall"
                 else HybridPhaseCost(args.machine, seed=args.seed + i))
-        trunk = None
+        head, trunk = None, None
         if args.balanced_trunk:
             disp = HybridKernelDispatcher.virtual(
                 args.machine, seed=args.seed + i, keep_stats=False)
@@ -176,29 +195,46 @@ def build_engines(args, cfg, params, device, *,
                                               quant=args.trunk_quant,
                                               double_buffer=double_buffer,
                                               device=device)
+        elif args.balanced_head:
+            disp = HybridKernelDispatcher.virtual(
+                args.machine, seed=args.seed + i, execute=True,
+                keep_stats=False)
+            dispatchers.append(disp)
+            head = balanced_lm_head(cfg, params, disp, device=device)
         engines.append(ContinuousBatchingEngine(
             cfg, params, max_slots=n_slots, max_seq=max_seq,
-            prefill_chunk=chunk, cost_model=cost, balanced_trunk=trunk,
-            device=device))
+            prefill_chunk=chunk, prefill_lanes=args.prefill_lanes,
+            cost_model=cost, balanced_head=head, balanced_trunk=trunk,
+            device=device, cuda_graph=cuda_graph))
     return engines, dispatchers
 
 
-def serve(args, params: Optional[dict] = None, *,
-          double_buffer: bool = True) -> ServeRun:
-    """Build the model and replicas for ``args`` and serve its Poisson
-    traffic to completion.  ``params`` (the port's layout, on the device)
-    replaces the seeded random weights; ``double_buffer`` picks the trunk's
-    Q4 kernel (see :func:`build_engines`)."""
+def setup(args, params: Optional[dict] = None, cfg=None) -> tuple:
+    """Check the requested modes and resolve (config, device, params) for
+    ``args``: ``params`` (the port's layout, on the device) replaces the
+    seeded random weights, ``cfg`` the ``--arch`` / ``--preset`` one."""
     check_ported(args)
     args.machine = args.machine or "ultra-125h"
     device = resolve_device(args.device)
-    cfg = (get_config(args.arch) if args.preset == "full"
-           else reduced_config(args.arch))
+    if cfg is None:
+        cfg = (get_config(args.arch) if args.preset == "full"
+               else reduced_config(args.arch))
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
         params = init_params(cfg, gen, device=device)
+    return cfg, device, params
+
+
+def serve(args, params: Optional[dict] = None, *, cfg=None,
+          double_buffer: bool = True, cuda_graph: bool = True) -> ServeRun:
+    """Build the model and replicas for ``args`` and serve its Poisson
+    traffic to completion.  ``params`` and ``cfg`` are those of
+    :func:`setup`; ``double_buffer`` and ``cuda_graph`` are passed to
+    :func:`build_engines`."""
+    cfg, device, params = setup(args, params, cfg)
     engines, dispatchers = build_engines(args, cfg, params, device,
-                                         double_buffer=double_buffer)
+                                         double_buffer=double_buffer,
+                                         cuda_graph=cuda_graph)
 
     table = RatioTable(args.replicas, alpha=0.3)
     if args.ratios:
@@ -233,6 +269,42 @@ def serve(args, params: Optional[dict] = None, *,
                     clock=clock, report=report, iterations=iterations)
 
 
+@dataclass
+class LegacyRun:
+    """What one ``--legacy-batch`` round produced."""
+
+    server: RoutedServer
+    tokens: np.ndarray    # (batch, prompt_len + steps)
+    counts: np.ndarray    # requests per replica
+    times: np.ndarray     # seconds per replica, fed back to the router
+
+
+def serve_legacy(args, params: Optional[dict] = None, *,
+                 cfg=None) -> LegacyRun:
+    """``--legacy-batch``: one seed-era ``RoutedServer.serve_batch`` round
+    of ``args.batch`` seeded random prompts over one static-batch engine
+    per replica.  ``params`` and ``cfg`` are those of :func:`setup`."""
+    cfg, device, params = setup(args, params, cfg)
+    max_seq = args.prompt_len + args.steps + 8
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(args.batch, args.prompt_len),
+        dtype=np.int32)
+    server = RoutedServer([
+        ServeEngine(cfg, params, batch_size=n, max_seq=max_seq,
+                    device=device)
+        for n in replica_slot_counts(args.batch, args.replicas)])
+    tokens, counts, times = server.serve_batch(prompts, args.steps)
+    return LegacyRun(server=server, tokens=tokens, counts=counts,
+                     times=times)
+
+
+def legacy_lines(run: LegacyRun) -> list:
+    """The printout of a ``--legacy-batch`` round (the reference's)."""
+    return [f"[serve] legacy routed counts={run.counts.tolist()} "
+            f"times={run.times.round(3).tolist()}",
+            f"[serve] generated shape={run.tokens.shape}"]
+
+
 def report_lines(args, run: ServeRun) -> list:
     """The printout of a run (the reference's lines)."""
     lines = [f"[serve] {args.replicas} replica(s), slots={run.slot_counts}, "
@@ -253,7 +325,14 @@ def report_lines(args, run: ServeRun) -> list:
         lines.append(
             f"[serve] decode achieved-bandwidth fraction (replica 0): "
             f"{run.engines[0].cost_model.achieved_bandwidth_fraction():.2f}")
-    if run.dispatchers:
+    if args.balanced_head and run.clock == "virtual":
+        d0 = run.dispatchers[0]
+        kt = d0.table.ratios(GEMV_ISA)
+        lines.append(f"[serve] balanced-head kernel table (replica 0): "
+                     f"membw spread={kt.max() / kt.min():.2f}x "
+                     f"achieved_bw_frac="
+                     f"{d0.achieved_bandwidth_fraction():.2f}")
+    elif run.dispatchers:
         d0 = run.dispatchers[0]
         for kind in TRUNK_KINDS:
             key = kernel_key(GEMV_ISA, kind)
@@ -271,6 +350,10 @@ def report_lines(args, run: ServeRun) -> list:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.legacy_batch:
+        for line in legacy_lines(serve_legacy(args)):
+            print(line)
+        return 0
     run = serve(args)
     for line in report_lines(args, run):
         print(line)

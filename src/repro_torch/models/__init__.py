@@ -2,6 +2,7 @@
 and the weight converter from the reference's pytrees."""
 
 from .transformer import (
+    balanced_lm_head,
     init_params,
     init_state,
     init_slot_state,
@@ -17,6 +18,7 @@ __all__ = [
     "BalancedQuantLinear",
     "BalancedLinear",
     "BalancedFp32Linear",
+    "balanced_lm_head",
     "init_params",
     "init_state",
     "init_slot_state",

@@ -87,6 +87,20 @@ def _write_cache(buf: torch.Tensor, new: torch.Tensor,
                  new.to(buf.dtype))
 
 
+def _attend(cfg: ModelConfig, qg, k_all, v_all, positions, kv_pos,
+            kv_len) -> torch.Tensor:
+    """Attention over every query, one query chunk at a time where the
+    queries split into ``cfg.attn_chunk``-sized chunks."""
+    s, chunk = qg.shape[3], cfg.attn_chunk
+    if s <= chunk or s % chunk:
+        return _sdpa_grouped(qg, k_all, v_all, positions, kv_pos, kv_len)
+    # the reference's lax.scan over query chunks
+    return torch.cat([
+        _sdpa_grouped(qg[:, :, :, c:c + chunk], k_all, v_all,
+                      positions[:, c:c + chunk], kv_pos, kv_len)
+        for c in range(0, s, chunk)], dim=3)
+
+
 def attn_fwd(
     cfg: ModelConfig,
     p: dict,
@@ -94,6 +108,7 @@ def attn_fwd(
     positions: torch.Tensor,
     cache: Optional[KVCache] = None,
     proj: Optional[callable] = None,
+    rowwise: bool = False,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """x: (B, S, d); positions: (B, S) global positions of these tokens.
 
@@ -101,6 +116,11 @@ def attn_fwd(
     chunk's K/V at ``cache.idx`` in place (prefill writes a block, decode
     one token) and attends over everything valid.  ``proj(name, x, w)``
     overrides each projection matmul (balanced dispatch of the trunk).
+    ``rowwise=True`` attends each batch row as its own batch-1 product,
+    so a row's scores and outputs do not depend on how many rows ride
+    along (on the card the batched GEMM's order of sums depends on the
+    batch count); multi-lane prefill uses it (through ``forward``'s
+    ``rowwise``) to stay token-identical to one-lane prefill.
     """
     b, s, d = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -138,14 +158,14 @@ def attn_fwd(
     if positions.dim() == 1:
         positions = torch.broadcast_to(positions[None, :], (b, s))
 
-    chunk = cfg.attn_chunk
-    if s <= chunk or s % chunk:
-        out = _sdpa_grouped(qg, k_all, v_all, positions, kv_pos, kv_len)
-    else:  # the reference's lax.scan over query chunks
+    if rowwise and b > 1:
         out = torch.cat([
-            _sdpa_grouped(qg[:, :, :, c:c + chunk], k_all, v_all,
-                          positions[:, c:c + chunk], kv_pos, kv_len)
-            for c in range(0, s, chunk)], dim=3)
+            _attend(cfg, qg[i:i + 1], k_all[i:i + 1], v_all[i:i + 1],
+                    positions[i:i + 1], kv_pos,
+                    kv_len[i:i + 1] if kv_len.dim() else kv_len)
+            for i in range(b)], dim=0)
+    else:
+        out = _attend(cfg, qg, k_all, v_all, positions, kv_pos, kv_len)
 
     out = out.reshape(b, hq, s, hd).transpose(1, 2).reshape(b, s, hq * hd)
     return mm("wo", out, p["wo"]).to(x.dtype), new_cache

@@ -109,14 +109,24 @@ def _tree_index(tree, r: int):
     return tree[r]
 
 
+def _norm(cfg, p, x, rowwise: bool) -> torch.Tensor:
+    """RMSNorm over x (B, S, d), one batch row at a time when ``rowwise``
+    (a reduction kernel on the card picks its order of sums by the number
+    of rows it reduces)."""
+    if rowwise and x.shape[0] > 1:
+        return torch.cat([norm_fwd(cfg, p, x[i:i + 1])
+                          for i in range(x.shape[0])])
+    return norm_fwd(cfg, p, x)
+
+
 def _apply_layer(cfg, ffn, p, x, positions, state, proj_attn=None,
-                 proj_ffn=None):
-    h = norm_fwd(cfg, p["norm1"], x)
+                 proj_ffn=None, rowwise=False):
+    h = _norm(cfg, p["norm1"], x, rowwise)
     mix, new_state = A.attn_fwd(cfg, p["mixer"], h, positions, state,
-                                proj=proj_attn)
+                                proj=proj_attn, rowwise=rowwise)
     x = x + mix
     if ffn != "none":
-        h2 = norm_fwd(cfg, p["norm2"], x)
+        h2 = _norm(cfg, p["norm2"], x, rowwise)
         x = x + mlp_fwd(cfg, p["ffn"], h2, proj=proj_ffn)
     return x, new_state
 
@@ -134,6 +144,7 @@ def forward(
     trunk_isa: str = "membw",
     trunk_offsets=None,
     plain: bool = False,
+    rowwise: bool = False,
 ) -> ForwardOut:
     """Trunk forward on tokens (B, S).
 
@@ -148,6 +159,10 @@ def forward(
     lowering under the ``trunk_isa`` phase ISA, with ``trunk_offsets`` the
     device offset snapshot.  ``plain=True`` runs those projections through
     the kernels' plain torch version instead (the comparison path).
+    ``rowwise=True`` runs the attention and the norms one batch row at a
+    time, so that each row's result does not depend on the batch size
+    (see :func:`~repro_torch.models.attention.attn_fwd`); the projections
+    already give each row the same sums whatever the batch.
     """
     x = embed_fwd(cfg, params["embed"], tokens)
     b, s, _ = x.shape
@@ -177,7 +192,7 @@ def forward(
                 proj_ffn = trunk.projector(j, r, "ffn", trunk_isa,
                                            offsets=trunk_offsets, plain=plain)
             x, new_st = _apply_layer(cfg, ffn, p_j, x, positions, st_j,
-                                     proj_attn, proj_ffn)
+                                     proj_attn, proj_ffn, rowwise)
             if have_state:
                 idx_out[j].append(new_st.idx)
     # k/v were written in place into the stacked caches; only idx is new
@@ -188,7 +203,7 @@ def forward(
     if logits_mode == "last":
         # serving prefill consumes only the last position's logits
         x = x[:, -1:, :]
-    x = norm_fwd(cfg, params["final_norm"], x)
+    x = _norm(cfg, params["final_norm"], x, rowwise)
     if apply_head:
         logits = logits_fwd(cfg, params["embed"], x)
     else:
@@ -196,3 +211,20 @@ def forward(
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return ForwardOut(logits=logits, state=new_state,
                       aux={"lb_loss": zero, "dropped": zero})
+
+
+def balanced_lm_head(cfg: ModelConfig, params: dict, dispatcher, *,
+                     device="cuda"):
+    """Bind the model's LM head to a hybrid kernel dispatcher: the (vocab,
+    d_model) head matrix is Q4_0-quantized on ``device`` and every call
+    runs as balanced per-core shards of the direct Q4 kernel (see
+    :class:`~repro_torch.models.layers.BalancedQuantLinear`).  Use with
+    ``forward(..., apply_head=False)``: the decode-step Fp32-Int4-Fp32 GEMV
+    — the paper's hot path — then runs through the ratio-table loop
+    instead of inside the trunk's step."""
+    from .layers import BalancedQuantLinear
+
+    w = (params["embed"]["tok"] if cfg.tie_embeddings
+         else params["embed"]["out"].T)  # (vocab, d_model) = (N, K)
+    return BalancedQuantLinear.from_dense(w.to(resolve_device(device)),
+                                          dispatcher)

@@ -2,8 +2,9 @@
 torch.
 
 The paper's INT8 GEMM uses unsigned-INT8 activations against signed-INT8
-weights (the AVX-VNNI ``vpdpbusd`` contract; on Hopper the ``dp4a.u32.s32``
-instruction of the port's ``int8_gemm`` kernel).
+weights (the AVX-VNNI ``vpdpbusd`` contract; on Hopper the s8 x u8
+``mma.sync.m16n8k32`` of the port's ``int8_mma_kernel``, behind
+``int8_gemm``).
 
 * Activations: per-row asymmetric u8 — scale + zero-point.
 * Weights: per-channel symmetric s8, carrying their int32 column sums.

@@ -15,7 +15,11 @@ or syncs with the host; the table only influences the next step's offsets.
   state (via the ``plan_counts`` callable the owner supplied — typically
   a dispatcher's Balancer) and returns ``{name: (n_workers + 1,) int32
   tensor}`` of cumulative boundaries — worker ``w`` owns rows
-  ``[b[w], b[w+1])``;
+  ``[b[w], b[w+1])``.  Each spec's tensor is allocated once, at the first
+  refresh that plans it, and every later refresh writes the new
+  boundaries into it in place: the tensors keep their addresses, so a
+  decode step captured as a CUDA graph reads the latest plan at every
+  replay;
 * ``boundaries(name)`` / ``counts(name)`` expose the host-side mirror of
   the latest snapshot (what feedback replay compares device-recovered
   shard sizes against).
@@ -62,10 +66,12 @@ class OffsetSnapshot:
 
     ``plan_counts(spec) -> (n_workers,) int64`` produces one plan from the
     owner's current ratio state; ``refresh()`` runs it for every registered
-    spec and uploads the cumulative boundaries to ``device``
-    (kept as :attr:`tensor_device`).  The returned
-    dict is fresh each refresh — callers pass it *as an argument* into their
-    step, so the step always reads the plan the host will account for.
+    spec and writes the cumulative boundaries into that spec's tensor on
+    ``device`` (kept as :attr:`tensor_device`).  Every refresh returns the
+    same dict of the same tensors, whose values it has just replaced —
+    callers pass it *as an argument* into their step (or capture it in a
+    graph), so the step always reads the plan the host will account for.
+    A planner may not change a spec's worker count once it has planned it.
     """
 
     def __init__(self, plan_counts: Callable[[OffsetSpec], np.ndarray], *,
@@ -74,7 +80,7 @@ class OffsetSnapshot:
         self.tensor_device = torch.device(device)
         self._specs: Dict[str, OffsetSpec] = {}
         self._host: Dict[str, np.ndarray] = {}
-        self._device: Dict[str, object] = {}
+        self._device: Dict[str, torch.Tensor] = {}
 
     # -------------------------------------------------------- registration --
     def register(self, spec: OffsetSpec) -> OffsetSpec:
@@ -98,25 +104,30 @@ class OffsetSnapshot:
         return self._specs[name]
 
     # ------------------------------------------------------------- refresh --
-    def refresh(self) -> Dict[str, object]:
-        """Re-plan every registered spec from current ratio state; returns
-        the new device snapshot ``{name: (n_workers + 1,) int32 tensor}``.
+    def refresh(self) -> Dict[str, torch.Tensor]:
+        """Re-plan every registered spec from current ratio state and write
+        the boundaries into the device snapshot ``{name: (n_workers + 1,)
+        int32 tensor}``, which it returns.
 
-        The commit is atomic: both the host mirror and the device snapshot
-        are staged in locals and published together only after *every* spec
-        has planned successfully.  A planner exception mid-refresh must not
-        leave the host mirror ahead of the device snapshot — feedback
-        replay would then compare device-recovered shard sizes against
-        boundaries the device never saw.
+        The commit is atomic: every spec is planned into host locals first,
+        and only when *all* have planned are the device tensors written and
+        the host mirror published.  A planner exception mid-refresh must
+        leave both untouched — feedback replay would otherwise compare
+        device-recovered shard sizes against boundaries the device never
+        saw.
         """
         host: Dict[str, np.ndarray] = {}
-        device: Dict[str, object] = {}
         for name, spec in self._specs.items():
             counts = np.asarray(self._plan_counts(spec), dtype=np.int64)
             if int(counts.sum()) != spec.total:
                 raise ValueError(
                     f"planner returned {int(counts.sum())} units for "
                     f"{name!r} (expected {spec.total})")
+            prev = self._device.get(name)
+            if prev is not None and prev.numel() != len(counts) + 1:
+                raise ValueError(
+                    f"planner returned {len(counts)} workers for {name!r}, "
+                    f"which was planned over {prev.numel() - 1}")
             bounds = np.zeros(len(counts) + 1, dtype=np.int32)
             np.cumsum(counts, out=bounds[1:])
             if _contracts.contracts_enabled():
@@ -124,15 +135,20 @@ class OffsetSnapshot:
                     bounds, spec.total,
                     where=f"OffsetSnapshot.refresh[{name}]")
             host[name] = bounds
-            device[name] = torch.tensor(bounds, device=self.tensor_device)
+        for name, bounds in host.items():
+            dev = self._device.get(name)
+            if dev is None:
+                self._device[name] = torch.tensor(bounds,
+                                                  device=self.tensor_device)
+            else:
+                dev.copy_(torch.from_numpy(bounds))
         self._host = host
-        self._device = device
         if _ev.RECORDER is not None:
             for name, bounds in host.items():
                 _ev.record("offsets", name, boundaries=bounds.tolist())
-        return device
+        return self._device
 
-    def device(self) -> Dict[str, object]:
+    def device(self) -> Dict[str, torch.Tensor]:
         """The latest device snapshot (refreshing first if none exists)."""
         if not self._device and self._specs:
             return self.refresh()

@@ -7,13 +7,18 @@ Layering::
         |
     IterationScheduler  +  SlotCacheManager    (scheduler.py, slots.py)
         |
-    ContinuousBatchingEngine                   (engine.py)
-        |
+    ContinuousBatchingEngine                   (engine.py; its decode
+        |                                       step a CUDA graph, step_graph.py)
     InflightDispatcher  --- per-phase RatioTable ---  HybridPhaseCost
     (replica routing, dispatch.py)                    (core dispatch, phases.py)
 """
 
-from .engine import ContinuousBatchingEngine
+from .engine import (
+    ContinuousBatchingEngine,
+    GenerationResult,
+    RoutedServer,
+    ServeEngine,
+)
 from .dispatch import InflightDispatcher
 from .phases import (
     DECODE,
@@ -33,6 +38,9 @@ from .traffic import poisson_requests
 
 __all__ = [
     "ContinuousBatchingEngine",
+    "GenerationResult",
+    "RoutedServer",
+    "ServeEngine",
     "InflightDispatcher",
     "Request",
     "RequestState",

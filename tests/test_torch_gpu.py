@@ -268,3 +268,259 @@ def test_gpu_int8_eager_shards_equal_one_launch_at_m32(cuda):
     assert 0 < I8.int8_gemm.launches - before <= disp.n_workers
     assert torch.equal(acc, I8.int8_gemm(a, w))
     assert torch.equal(acc, I8.int8_gemm_plain(a, w))
+
+
+# ------------------------------------------------ the captured decode step --
+# compiled trunks (quant, double_buffer) and the dense model, whose decode
+# steps the engine captures as one CUDA graph
+_CAPTURED = {"q4-db": ("q4", True), "q4-direct": ("q4", False),
+             "int8": ("int8", True), "fp32": ("fp32", True), "dense": None}
+
+
+def _graph_engine(device, which, cuda_graph=True):
+    """A reduced llama2-7b engine (seeded weights on the card) with three
+    queued requests; ``which`` names a key of _CAPTURED."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import BalancedTrunk, init_params
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     HybridPhaseCost, poisson_requests)
+
+    cfg = reduced_config("llama2-7b")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    trunk = None
+    if _CAPTURED[which] is not None:
+        quant, db = _CAPTURED[which]
+        trunk = BalancedTrunk.from_params(
+            cfg, params, HybridKernelDispatcher.virtual("ultra-125h"),
+            quant=quant, double_buffer=db, device=device)
+    engine = ContinuousBatchingEngine(
+        cfg, params, max_slots=3, max_seq=32, prefill_chunk=4,
+        cost_model=HybridPhaseCost("ultra-125h"), balanced_trunk=trunk,
+        device=device, cuda_graph=cuda_graph)
+    for r in poisson_requests(3, rate=0, vocab_size=cfg.vocab_size,
+                              prompt_len=6, max_new_tokens=10, seed=0):
+        engine.submit(r)
+    return engine
+
+
+def _until_all_decoding(engine):
+    while engine.n_running < engine.max_slots or engine.n_prefilling:
+        engine.step()
+
+
+def _state(engine):
+    return [(c.k.clone(), c.v.clone(), c.idx.clone())
+            for c in engine.manager.state]
+
+
+def _set_state(engine, saved):
+    for c, (k, v, idx) in zip(engine.manager.state, saved):
+        c.k.copy_(k)
+        c.v.copy_(v)
+        c.idx.copy_(idx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", list(_CAPTURED))
+def test_gpu_replayed_step_equals_uncaptured_step(cuda, which):
+    """From the same slot state, a replay of the captured decode step and
+    the step run uncaptured give the same logits and the same state (K/V
+    rows and cache indices), bit for bit; the state keeps its tensors."""
+    engine = _graph_engine(cuda, which)
+    assert engine.captured
+    _until_all_decoding(engine)
+    assert engine._graph is not None and engine._graph.graph is not None
+    tensors = [(c.k, c.v, c.idx) for c in engine.manager.state]
+    saved = _state(engine)
+    replays = engine._graph.replays
+    logits, _ = engine._decode()
+    replayed = (logits.clone(), _state(engine))
+    assert engine._graph.replays == replays + 1
+    _set_state(engine, saved)
+    man = engine.manager
+    logits, _ = engine._decode_body(
+        torch.as_tensor(man.last_token[:, None], device=cuda),
+        torch.as_tensor(man.pos, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(replayed[0], logits)
+    for got, want in zip(replayed[1], _state(engine)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert [(c.k, c.v, c.idx) for c in man.state] == tensors
+    assert int((replayed[1][0][2] - saved[0][2]).min()) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", [w for w in _CAPTURED if w != "dense"])
+def test_gpu_replay_reads_refreshed_offsets(cuda, which):
+    """Offsets refreshed between replays reach the graph: the tape's size
+    tensors, recomputed by each replay, follow the new plan."""
+    import numpy as np
+
+    engine = _graph_engine(cuda, which)
+    _until_all_decoding(engine)
+    trunk = engine.balanced_trunk
+    ctx = trunk._compiled()
+    _, recs = engine._decode()
+    before = torch.stack([r["sizes"] for r in recs]).cpu().numpy()
+    table = trunk.dispatcher.table
+    n = table.n_workers
+    for key in table.keys():
+        table.set(key, np.linspace(1.0, 8.0, n)[::-1])
+    engine._offsets = trunk.compiled_refresh()
+    _, again = engine._decode()
+    assert again is recs
+    after = torch.stack([r["sizes"] for r in recs]).cpu().numpy()
+    for rec, got in zip(recs, after):
+        want = ctx.snapshot.counts(ctx._specs[rec["spec"]].name)
+        assert got.tolist() == want.tolist()
+    assert (after != before).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", list(_CAPTURED))
+def test_gpu_launch_counts_include_replays(cuda, which):
+    """A captured run counts the launches of an uncaptured run of the same
+    traffic, replays included, and gives the same tokens and timelines."""
+    from repro_torch.kernels import COUNTED
+
+    runs = {}
+    for graph in (True, False):
+        engine = _graph_engine(cuda, which, cuda_graph=graph)
+        before = [w.launches for w in COUNTED]
+        reqs = engine.outstanding()
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        runs[graph] = ([w.launches - b for w, b in zip(COUNTED, before)],
+                       [(r.generated, r.finish_time) for r in reqs], engine)
+    assert runs[True][0] == runs[False][0]
+    assert runs[True][1] == runs[False][1]
+    graph = runs[True][2]._graph
+    assert graph.replays > 0 and runs[False][2]._graph is None
+    assert (sum(runs[True][0]) > 0) == (_CAPTURED[which] is not None
+                                        and which != "fp32")
+    assert sum(graph.launches) * graph.replays <= sum(runs[True][0])
+
+
+@pytest.mark.gpu
+def test_gpu_capture_survives_garbage_collection(cuda):
+    """An engine and its graph refer to each other, so a dropped engine's
+    graph is freed by the garbage collector; that must not happen inside
+    another engine's capture (freeing a graph's memory there invalidates
+    the capture).  With the collector run at almost every allocation, the
+    capture still succeeds."""
+    import gc
+
+    dead = _graph_engine(cuda, "q4-db")
+    _until_all_decoding(dead)
+    assert dead._graph.graph is not None
+    del dead
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        engine = _graph_engine(cuda, "int8")
+        _until_all_decoding(engine)
+    finally:
+        gc.set_threshold(*threshold)
+    assert engine._graph.graph is not None
+    engine.run_until_idle()
+
+
+@pytest.mark.gpu
+def test_gpu_eager_trunk_is_not_captured(cuda):
+    """The reference does not jit an eager trunk's step, and the port does
+    not capture it: its decode runs uncaptured, shard by shard."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import BalancedTrunk, init_params
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg = reduced_config("llama2-7b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    trunk = BalancedTrunk.from_params(
+        cfg, params, HybridKernelDispatcher.virtual("ultra-125h",
+                                                    execute=True),
+        mode="eager", device=cuda)
+    engine = ContinuousBatchingEngine(cfg, params, max_slots=2, max_seq=16,
+                                      balanced_trunk=trunk, device=cuda)
+    assert engine.captured is False
+    dense = ContinuousBatchingEngine(cfg, params, max_slots=2, max_seq=16,
+                                     device=cuda)
+    assert dense.captured is True
+
+
+@pytest.mark.gpu
+def test_gpu_balanced_head_shards_equal_one_launch(cuda):
+    """The balanced head's eager per-core shards (one direct-kernel launch
+    per non-empty shard) equal one q4_matmul over the whole head, bitwise."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import balanced_lm_head, init_params
+
+    cfg = reduced_config("llama2-7b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    disp = HybridKernelDispatcher.virtual("ultra-125h", execute=True)
+    head = balanced_lm_head(cfg, params, disp, device=cuda)
+    x = torch.randn((3, cfg.d_model), device=cuda)
+    before = K.q4_matmul.launches
+    y = head(x, isa="membw")
+    torch.cuda.synchronize()
+    shards = int((disp.last_stats.counts > 0).sum())
+    assert K.q4_matmul.launches - before == shards > 0
+    assert torch.equal(y, K.q4_matmul(x, head.qw, q4_blocks(cfg.d_model)[2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["q4-db", "int8"])
+def test_gpu_lanes_prefill_rows_equal_one_lane(cuda, which):
+    """A multi-lane prefill chunk gives each lane the logits and caches of
+    its one-lane chunk, bitwise: the kernels sum each row in an order set
+    by K alone and each lane attends on its own."""
+    from repro_torch.models import init_slot_state, init_state
+    from repro_torch.serving import PREFILL
+
+    engine = _graph_engine(cuda, which)
+    cfg, lanes = engine.cfg, 3
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (lanes, 4), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    starts = torch.tensor([0, 4, 8], dtype=torch.int32, device=cuda)
+    stacked = init_slot_state(cfg, lanes, 32, device=cuda)
+    for c in stacked:
+        c.idx.copy_(starts.expand_as(c.idx))
+    many, state, _ = engine._run(tokens, stacked, starts, PREFILL,
+                                 lanes=True)
+    for i in range(lanes):
+        one = init_state(cfg, 1, 32, device=cuda)
+        for c in one:
+            c.idx.fill_(int(starts[i]))
+        logits, st, _ = engine._run(tokens[i:i + 1], one, starts[i], PREFILL)
+        assert torch.equal(logits[0], many[i])
+        for a, b in zip(st, state):
+            assert torch.equal(a.k[:, 0], b.k[:, i])
+
+
+# kept last: a failed capture is the one test here that leaves a CUDA
+# error behind it for torch to clear
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", list(_CAPTURED))
+def test_gpu_sync_inside_capture_raises(cuda, which):
+    """A decode step that syncs with the host cannot be captured: the
+    engine raises, at the first decode step and again at the next, and
+    never falls back to the uncaptured step."""
+    engine = _graph_engine(cuda, which)
+    body = engine._decode_body
+
+    def syncing(tok, pos):
+        logits, recs = body(tok, pos)
+        float(logits.sum())            # a host sync
+        return logits, recs
+
+    engine._decode_body = syncing
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            while True:
+                engine.step()
+        assert engine._graph is not None and engine._graph.graph is None
+    torch.cuda.synchronize()

@@ -287,9 +287,8 @@ def test_direct_kernel_lowering_equals_double_buffered(model):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("case", ["bridge", "lanes", "topology", "arch",
-                                  "balanced_head", "topology_dispatcher",
-                                  "no_card"])
+@pytest.mark.parametrize("case", ["bridge", "topology", "arch",
+                                  "topology_dispatcher", "no_card"])
 def test_unported_paths_raise(model, case, monkeypatch):
     cfg_p, params_p = model[1], model[3]
     disp = PortDisp.virtual("ultra-125h")
@@ -302,17 +301,10 @@ def test_unported_paths_raise(model, case, monkeypatch):
     calls = {
         "bridge": (ValueError, lambda: BalancedTrunk.from_params(
             cfg_p, params_p, disp, mode="bridge", device="cpu")),
-        "lanes": (NotImplementedError, lambda: ContinuousBatchingEngine(
-            cfg_p, params_p, max_slots=2, max_seq=16, prefill_lanes=2,
-            device="cpu")),
         "topology": (NotImplementedError, lambda: ContinuousBatchingEngine(
             cfg_p, params_p, max_slots=2, max_seq=16, topology=object(),
             device="cpu")),
         "arch": (KeyError, lambda: get_config("granite-8b")),
-        "balanced_head": (NotImplementedError,
-                          lambda: ContinuousBatchingEngine(
-                              cfg_p, params_p, max_slots=2, max_seq=16,
-                              balanced_head=object(), device="cpu")),
         "topology_dispatcher": (NotImplementedError,
                                 lambda: CompiledDispatcher(
                                     SocketDispatcher(), device="cpu")),

@@ -226,7 +226,7 @@ def test_serve_run_records_every_iteration():
     assert run.iterations[-1].now == run.engines[0].now
 
 
-@pytest.mark.parametrize("flag", [["--fleet"], ["--legacy-batch"],
+@pytest.mark.parametrize("flag", [["--fleet"],
                                   ["--topology", "dual-125h"],
                                   ["--trace", "t.json"],
                                   ["--metrics", "m.prom"],
