@@ -50,11 +50,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    and fp32: the same virtual timelines, the same tokens (q4, int8), and
    one projection of each kind bitwise equal (q4, int8) or within a stated
    tolerance (fp32).
-8. A JSON line with every kernel's numbers, then the device line.
+8. The NUMA topology modes (``--topology``): the main traffic at full
+   width on ``dual-125h`` with the Q4 trunk and on ``2s-12900k`` with the
+   int8 trunk, socket-local, each captured and uncaptured with
+   ``--trace``, ``--metrics`` and ``--flight-recorder`` on: the same tokens
+   and timelines and the same trace, metrics and decision-ring files (the
+   trace passes ``validate_trace``), 225 launches per trunk call, logits
+   against the plain path (Q4 within the tolerance, int8 bitwise), and the
+   captured decode step split into the replay, the pick and the two-level
+   feedback (inner per-socket replays, outer socket report, offset
+   refresh).  Then, at 2 layers of full width, eager against compiled
+   topology trunks (q4, int8; both topologies): logits bitwise equal, one
+   launch per non-empty core shard of both sockets, and the
+   socket-oblivious baseline's tokens equal to socket-local ones.
+9. ``--fleet`` at 2 layers of full width: the default fleet (6 engines on
+   the card sharing one copy of the weights), 16 requests, twice with one
+   seed (the same routing, requeues and node ratios) and once with
+   ``--fleet-admission``; every request finishes or is shed, and the
+   card's routing, requeues, sheds and node ratios equal the same runs
+   with ``--device cpu``.
+10. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
 a change to any kernel.
+
+Every figure of the machine model that the serve lines print (TTFT,
+TPOT, ratio tables, socket splits, ``achieved_bw_frac``, GB/s of the
+simulated sockets) is on the virtual clock, never a card figure.
 
 It exits non-zero, printing no result, when torch.cuda.is_available() is
 False or when the checkout's ``src/repro_torch`` is not beside it.
@@ -64,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -374,6 +398,10 @@ SERVE_ARGV = ["--arch", "llama2-7b", "--preset", "full", "--balanced-trunk",
               "--prefill-chunk", "8", "--machine", "ultra-125h",
               "--device", "cuda"]
 LANES = 4             # prefill lanes of the multi-lane runs: M = 4 x 8 = 32
+# where the topology phases write their trace, metrics and decision ring
+OBS_DIR = Path(__file__).resolve().parent / "build" / "smoke_obs"
+OBS_FILES = {"trace": "trace.json", "metrics": "metrics.prom",
+             "flight_recorder": "recorder.json"}
 
 
 class Counts:
@@ -393,25 +421,42 @@ class Counts:
 
 
 def drive(counts, serve_mod, *, quant="q4", params=None, double_buffer=True,
-          cuda_graph=True, lanes=1) -> dict:
+          cuda_graph=True, lanes=1, topology=None, obs_dir=None) -> dict:
     """The port's serve path at full width (SERVE_ARGV with ``quant`` and
     ``lanes`` prefill lanes), with every launch count set to 0 just before
     the run and read just after.  ``cuda_graph=False`` runs its decode
-    steps uncaptured.  ``trunk_calls`` counts its trunk calls (one per
-    prefill iteration and one per decode step), each 225 launches of the
-    trunk's kernel."""
+    steps uncaptured; ``topology`` serves on that NUMA topology (its
+    flattened machine is the clock); ``obs_dir`` turns on ``--trace``,
+    ``--metrics`` and ``--flight-recorder`` into that directory, as
+    ``main()`` of the serve module does.  ``trunk_calls`` counts its trunk
+    calls (one per prefill iteration and one per decode step), each 225
+    launches of the trunk's kernel."""
     argv = list(SERVE_ARGV)
     argv[argv.index("--trunk-quant") + 1] = quant
+    if topology is not None:
+        at = argv.index("--machine")
+        argv[at:at + 2] = ["--topology", topology]
+    if obs_dir is not None:
+        obs_dir.mkdir(parents=True, exist_ok=True)
+        for flag, name in OBS_FILES.items():
+            argv += [f"--{flag.replace('_', '-')}", str(obs_dir / name)]
     args = serve_mod.build_parser().parse_args(
         argv + ["--prefill-lanes", str(lanes)])
+    observers = serve_mod.Observers(args)
     torch.cuda.reset_peak_memory_stats()
     counts.reset()
     t0 = time.perf_counter()
-    run = serve_mod.serve(args, params=params, double_buffer=double_buffer,
-                          cuda_graph=cuda_graph)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = counts.read()
+    try:
+        run = serve_mod.serve(args, params=params,
+                              double_buffer=double_buffer,
+                              cuda_graph=cuda_graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts.read()
+        if observers.registry is not None:
+            run.report.publish(observers.registry)
+    finally:
+        obs_lines = observers.close()
     vocab = run.cfg.vocab_size
     for r in run.requests:
         if r.n_generated != args.steps or not all(0 <= t < vocab
@@ -426,7 +471,7 @@ def drive(counts, serve_mod, *, quant="q4", params=None, double_buffer=True,
     return {"args": args, "run": run, "launches": launches,
             "trunk_calls": trunk_calls,
             "peak_bytes": torch.cuda.max_memory_allocated(),
-            "serve_wall_s": wall}
+            "serve_wall_s": wall, "obs_lines": obs_lines}
 
 
 def expect_launches(main: dict, kernel: str) -> None:
@@ -550,18 +595,64 @@ def weight_bytes(trunk) -> int:
     return total
 
 
+class FeedbackSplit:
+    """The cost-tape feedback of a topology trunk split by the host clock,
+    by wrapping methods on the instances: the inner per-socket replays
+    (each socket dispatcher's ``dispatch``), the outer socket-level report
+    (the rest of the two-level replay, ``_replay_topology``), and the
+    offset refresh."""
+
+    KEYS = ("inner_ms", "outer_ms", "refresh_ms")
+
+    def __init__(self, trunk):
+        ctx = trunk._compiled()
+        self.acc = {"inner": 0.0, "replay": 0.0, "refresh": 0.0}
+        self.targets = ([(d, "dispatch", "inner")
+                         for d in ctx.dispatcher.socket_dispatchers]
+                        + [(ctx, "_replay_topology", "replay"),
+                           (ctx, "refresh", "refresh")])
+        for obj, attr, name in self.targets:
+            setattr(obj, attr, self._timed(name, getattr(obj, attr)))
+
+    def _timed(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.acc[name] += time.perf_counter() - t0
+        return timed
+
+    def reset(self) -> None:
+        self.acc = dict.fromkeys(self.acc, 0.0)
+
+    def read(self) -> dict:
+        a = self.acc
+        return {"inner_ms": a["inner"] * 1e3,
+                "outer_ms": (a["replay"] - a["inner"]) * 1e3,
+                "refresh_ms": a["refresh"] * 1e3}
+
+    def remove(self) -> None:
+        for obj, attr, _ in self.targets:
+            delattr(obj, attr)
+
+
 class StepParts:
     """The parts of an engine's decode step, timed by wrapping its methods
     on the instance: the step body (the graph replay when captured, with
     its two small input copies) by CUDA events and by the host time it
     takes to enqueue; the pick on the host (its copy to the host waits for
     the body); and the cost-tape feedback with the offset refresh on the
-    host."""
+    host (with ``split``, a :class:`FeedbackSplit`, that feedback's parts
+    too)."""
 
     KEYS = ("body_ms", "enqueue_ms", "pick_ms", "feedback_ms")
 
-    def __init__(self, engine):
+    def __init__(self, engine, split=None):
         self.engine, self.rows, self.cur = engine, [], {}
+        self.split = split
+        if split is not None:
+            self.KEYS = self.KEYS + split.KEYS
         decode, sample, feedback = (engine._decode, engine._sample,
                                     engine._feedback)
 
@@ -583,9 +674,13 @@ class StepParts:
             return out
 
         def timed_feedback(recs):
+            if split is not None:
+                split.reset()
             t0 = time.perf_counter()
             feedback(recs)
             self.cur["feedback_ms"] = (time.perf_counter() - t0) * 1e3
+            if split is not None:
+                self.cur.update(split.read())
 
         engine._decode, engine._sample, engine._feedback = (
             timed_decode, timed_sample, timed_feedback)
@@ -601,6 +696,8 @@ class StepParts:
     def remove(self) -> None:
         for name in ("_decode", "_sample", "_feedback"):
             delattr(self.engine, name)
+        if self.split is not None:
+            self.split.remove()
 
     def medians(self) -> dict:
         return {k: float(np.median([r[k] for r in self.rows]))
@@ -623,7 +720,9 @@ def decode_wall(run, Request, np_rng, label: str) -> dict:
                                    dtype=np.int32),
             max_new_tokens=32 if engine.captured else 16,
             arrival_time=engine.now))
-    parts = StepParts(engine)
+    topo = engine.topology is not None and engine.placement is not None
+    parts = StepParts(engine, FeedbackSplit(engine.balanced_trunk)
+                      if topo and engine.captured else None)
     times = []
     try:
         while engine.has_work:
@@ -648,7 +747,11 @@ def decode_wall(run, Request, np_rng, label: str) -> dict:
         f"max {max(times) * 1e3:.2f}); body {med['body_ms']:.2f} ms by CUDA "
         f"events, {med['enqueue_ms']:.2f} ms to enqueue; pick "
         f"{med['pick_ms']:.2f} ms (waits for the body); feedback + refresh "
-        f"{med['feedback_ms']:.2f} ms; rest {other:.2f} ms; weights "
+        f"{med['feedback_ms']:.2f} ms"
+        + (f" (inner per-socket replays {med['inner_ms']:.2f}, outer socket "
+           f"report {med['outer_ms']:.2f}, refresh {med['refresh_ms']:.2f})"
+           if parts.split is not None else "")
+        + f"; rest {other:.2f} ms; weights "
         f"{wbytes / 1e9:.3f} GB per step -> {wbytes / step / 1e9:.1f} GB/s = "
         f"{wbytes / step / HBM_BYTES_PER_S:.4f} of 3.35 TB/s")
     return {"captured": engine.captured, "decode_step_ms": step * 1e3,
@@ -1051,10 +1154,316 @@ def eager_vs_compiled(params) -> dict:
     return res
 
 
+def file_digest(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def serve_topology(counts, serve_mod, params, topology: str, quant: str,
+                   kernel: str, tol: float, forward, init_state, Request,
+                   np_rng) -> dict:
+    """Phase 8: the main traffic at full width on ``topology`` (socket-local
+    two-level dispatch, NUMA-placed weights in the machine model), with
+    ``--trace``, ``--metrics`` and ``--flight-recorder`` on, captured and
+    uncaptured: the same tokens and timelines and the same three files
+    (none holds a wall-clock field), 225 launches of ``kernel`` per trunk
+    call, the trace valid; then the captured decode step split (with the
+    two-level feedback's parts), its profile, and its logits against the
+    plain path within ``tol``."""
+    from repro_torch.obs import validate_trace
+
+    label = f"{quant} {topology}"
+    runs = {}
+    for graph in (True, False):
+        mode = "captured" if graph else "uncaptured"
+        runs[graph] = drive(counts, serve_mod, quant=quant, params=params,
+                            cuda_graph=graph, topology=topology,
+                            obs_dir=OBS_DIR / f"{quant}-{topology}" / mode)
+        expect_launches(runs[graph], kernel)
+    main, unc = runs[True], runs[False]
+    run = main["run"]
+    say(f"[smoke] {label}: the serve lines below are the machine model's "
+        f"(virtual clock, simulated sockets), not card figures")
+    for line in serve_mod.report_lines(main["args"], run) + main["obs_lines"]:
+        say(line)
+    graph = run.engines[0]._graph
+    say(f"[smoke] {label} launches: {main['launches']} over "
+        f"{main['trunk_calls']} trunk calls, {graph.replays} of them graph "
+        f"replays of {sum(graph.launches)} launches each; snapshot "
+        f"boundaries per projection: {run.engines[0].balanced_trunk._compiled().n_workers + 1} "
+        f"(serve wall {main['serve_wall_s']:.1f} s captured, "
+        f"{unc['serve_wall_s']:.1f} s uncaptured, tracing on)")
+    assert_same_run(run, unc["run"], f"{label} uncaptured vs captured")
+    digests = {}
+    for name, fname in OBS_FILES.items():
+        a, b = (OBS_DIR / f"{quant}-{topology}" / mode / fname
+                for mode in ("captured", "uncaptured"))
+        digests[name] = (file_digest(a), a.stat().st_size)
+        if digests[name][0] != file_digest(b):
+            raise AssertionError(f"{label}: {name} of the captured run "
+                                 f"differs from the uncaptured run's")
+    trace = OBS_DIR / f"{quant}-{topology}" / "captured" / OBS_FILES["trace"]
+    problems = validate_trace(str(trace))
+    if problems:
+        raise AssertionError(f"{label} trace: {problems[:5]}")
+    say(f"[smoke] {label} uncaptured run: same tokens, timelines and "
+        f"launches; trace ({digests['trace'][1] / 1e6:.1f} MB, valid), "
+        f"metrics and decision ring byte-identical to the captured run's")
+    d0 = run.dispatchers[0]
+    splits = {key: d0.socket_ratios(key).tolist() for key in d0.table.keys()}
+    fracs = [d0.achieved_bandwidth_fraction(socket=s)
+             for s in range(d0.n_sockets)]
+    del unc, runs
+    torch.cuda.empty_cache()
+    wall = decode_wall(run, Request, np_rng, label)
+    prof = profile_decode(run, Request, np_rng, label)
+    vs_plain = main_path_vs_plain(run, forward, init_state, np_rng, label,
+                                  tol)
+    out = {"launches": main["launches"][kernel],
+           "trunk_calls": main["trunk_calls"],
+           "serve_wall_s": main["serve_wall_s"],
+           "peak_bytes": main["peak_bytes"],
+           "socket_split_virtual": splits,
+           "socket_achieved_bw_frac_virtual": fracs,
+           "report": run.report.to_dict(), "decode": wall,
+           "profile": prof, "vs_plain": vs_plain,
+           "obs_sha256": {k: v[0] for k, v in digests.items()}}
+    del run, main
+    torch.cuda.empty_cache()
+    return out
+
+
+class ShardCount:
+    """Non-empty core shards of every region the socket dispatchers of an
+    eager topology trunk run (one kernel launch each), counted by wrapping
+    their ``dispatch`` on the instances."""
+
+    def __init__(self, topo):
+        self.n = 0
+        self.dispatchers = topo.socket_dispatchers or [topo.flat]
+        for d in self.dispatchers:
+            d.dispatch = self._counted(d.dispatch)
+
+    def _counted(self, fn):
+        def counted(*a, **k):
+            st = fn(*a, **k)
+            self.n += int((st.counts > 0).sum())
+            return st
+        return counted
+
+    def remove(self) -> None:
+        for d in self.dispatchers:
+            del d.dispatch
+
+
+def topology_eager_vs_compiled(counts, params) -> dict:
+    """Phase 8 (2 layers of full width): compiled and eager topology trunks,
+    q4 and int8, on both topologies, socket-local, and the compiled
+    socket-oblivious baseline, over 4 requests: the same timelines and
+    tokens; one eager launch per non-empty core shard across both sockets
+    (the direct kernel for q4); each projection kind and the head bitwise
+    equal eager against compiled."""
+    from repro_torch.models import BalancedTrunk
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     HybridPhaseCost, poisson_requests)
+    from repro_torch.topology import TopologyDispatcher
+
+    cfg, params2 = two_layers(params)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((DECODE_M, cfg.d_model), generator=gen, device="cuda")
+    xff = torch.randn((DECODE_M, cfg.d_ff), generator=gen, device="cuda")
+    kinds = (("attn_proj", "attn", "wq", x), ("mlp_up", "ffn", "wi", x),
+             ("mlp_down", "ffn", "wo", xff))
+    eager_kernel = {"q4": "q4_matmul", "int8": "int8_gemm"}
+    res, launches = {}, {}
+    for quant in ("q4", "int8"):
+        for topology in ("dual-125h", "2s-12900k"):
+            t0 = time.perf_counter()
+            runs = {}
+            for mode, local in (("compiled", True), ("eager", True),
+                                ("compiled", False)):
+                disp = TopologyDispatcher(topology, socket_local=local,
+                                          execute=mode == "eager",
+                                          keep_stats=False)
+                trunk = BalancedTrunk.from_params(cfg, params2, disp,
+                                                  quant=quant, mode=mode,
+                                                  device="cuda")
+                engine = ContinuousBatchingEngine(
+                    cfg, params2, max_slots=4, max_seq=32, prefill_chunk=8,
+                    cost_model=HybridPhaseCost(topology),
+                    balanced_trunk=trunk, device="cuda")
+                reqs = poisson_requests(4, rate=50.0,
+                                        vocab_size=cfg.vocab_size,
+                                        prompt_len=16, max_new_tokens=8,
+                                        seed=1)
+                shards = ShardCount(disp) if mode == "eager" else None
+                counts.reset()
+                for r in reqs:
+                    engine.submit(r)
+                engine.run_until_idle()
+                torch.cuda.synchronize()
+                got = counts.read()
+                if shards is not None:
+                    shards.remove()
+                runs[mode, local] = (trunk, reqs, got,
+                                     shards.n if shards else None)
+            (tc, rc, _, _), (te, re, le, n_shards) = (runs["compiled", True],
+                                                      runs["eager", True])
+            ro = runs["compiled", False][1]
+            fields = ("generated", "arrival_time", "admit_time",
+                      "first_token_time", "finish_time")
+            for a, b, c in zip(rc, re, ro):
+                if any(getattr(a, f) != getattr(b, f) for f in fields):
+                    raise AssertionError(f"{quant} {topology}: eager run of "
+                                         f"request {a.request_id} differs")
+                if a.generated != c.generated:
+                    raise AssertionError(f"{quant} {topology}: oblivious "
+                                         f"tokens of request {a.request_id} "
+                                         f"differ from socket-local")
+            want = {k: 0 for k in le}
+            want[eager_kernel[quant]] = n_shards
+            if le != want or not n_shards:
+                raise AssertionError(f"{quant} {topology} eager launches "
+                                     f"{le}, expected {want}")
+            offs = tc.compiled_refresh()
+            pairs = {kind: (te.projector(0, 1, group, "membw")(name, xin,
+                                                               None),
+                            tc.projector(0, 1, group, "membw",
+                                         offsets=offs)(name, xin, None))
+                     for kind, group, name, xin in kinds}
+            pairs["head"] = (te.apply_head(x, isa="membw"),
+                             tc.apply_head(x, isa="membw", offsets=offs))
+            for kind, (a, b) in pairs.items():
+                if not torch.equal(a, b):
+                    rel = ((a - b).abs().max() / b.abs().max()).item()
+                    raise AssertionError(f"{quant} {topology} {kind}: eager "
+                                         f"!= compiled bitwise ({rel})")
+            say(f"[smoke] {quant} {topology} eager vs compiled (2 layers, "
+                f"full width, 4 requests): timelines and tokens equal, "
+                f"{n_shards} {eager_kernel[quant]} launches = the non-empty "
+                f"core shards of both sockets, every projection kind and "
+                f"the head bitwise equal; socket-oblivious tokens equal "
+                f"[{time.perf_counter() - t0:.1f} s]")
+            res[f"{quant} {topology}"] = {"eager_launches": n_shards}
+            launches[f"eager {quant} {topology}"] = le
+            del runs, tc, te
+            torch.cuda.empty_cache()
+    return {"runs": res, "launches": launches}
+
+
+def to_cpu(tree):
+    """A copy of a params tree with every tensor on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def fleet_phase(serve_mod, params) -> dict:
+    """Phase 9: ``--fleet`` at 2 layers of full width — the default fleet
+    (6 engines on the card over one copy of the weights), 16 requests of
+    up to 16 + 8 tokens, under the reference's diurnal traffic and failure
+    window: twice with one seed, then with ``--fleet-admission``.  Every
+    request finishes or is shed (only with admission); both seeded runs
+    route, requeue and learn alike; every engine's caches are on the card.
+    The card's runs are held to the same fleet runs with ``--device cpu``
+    on the same weights (the virtual clock does not see the device; the
+    CPU run is the one the CPU tests hold to the reference): the same
+    routed counts, requeues, sheds and node ratios.  At this size the
+    failure window catches no request in flight on ``big`` and admission
+    never reaches its queue cap: no request is requeued or shed, and
+    admission only degrades (cuts the token budget of) a few requests.
+    The lines say how many of each there were."""
+    from repro_torch.serving import FinishReason
+
+    cfg, params2 = two_layers(params)
+    base = ["--arch", "llama2-7b", "--fleet", "--requests", "16",
+            "--prompt-len", "16", "--steps", "8", "--batch", "4"]
+    keys = ("routed", "requeued", "prefill", "decode", "shed", "degraded")
+    out, cpu = [], {}
+    for extra in ([], [], ["--fleet-admission"]):
+        args = serve_mod.build_parser().parse_args(
+            base + extra + ["--device", "cuda"])
+        t0 = time.perf_counter()
+        run = serve_mod.serve_fleet(args, params=params2, cfg=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in serve_mod.fleet_lines(args, run):
+            say(line)
+        engines = [e for n in run.cluster.nodes for e in n.engines]
+        on_card = all(c.k.device.type == "cuda" and c.v.device.type == "cuda"
+                      for e in engines for c in e.manager.state)
+        shed = sum(r.finish_reason is FinishReason.SHED for r in run.requests)
+        ok_reasons = {FinishReason.STOP, FinishReason.LENGTH,
+                      FinishReason.ABORTED}
+        if extra:
+            ok_reasons.add(FinishReason.SHED)
+        if (len(run.requests) != 16 or not on_card or len(engines) != 6
+                or any(r.finish_time is None or r.finish_reason not in
+                       ok_reasons for r in run.requests)
+                or shed != run.report.n_shed):
+            raise AssertionError(f"fleet run {extra}: "
+                                 f"{len(run.requests)} finished, reasons "
+                                 f"{[r.finish_reason for r in run.requests]}"
+                                 f", caches on the card: {on_card}")
+        captured = sum(e._graph is not None for e in engines)
+        say(f"[smoke] fleet {' '.join(extra) or '(no admission)'}: 16/16 "
+            f"finished or shed ({shed} shed, {run.report.n_degraded} "
+            f"degraded, {run.router.n_requeued} requeued), {len(engines)} "
+            f"engines with their caches on the "
+            f"card, {captured} decode steps captured; serve wall "
+            f"{wall:.1f} s (virtual clock above)")
+        out.append({"routed": run.router.routed.tolist(),
+                    "requeued": run.router.n_requeued,
+                    "prefill": run.router.table.ratios("prefill").tolist(),
+                    "decode": run.router.table.ratios("decode").tolist(),
+                    "shed": shed, "degraded": run.report.n_degraded,
+                    "serve_wall_s": wall,
+                    "report": run.report.to_dict()})
+        del run, engines
+        torch.cuda.empty_cache()
+    if any(out[0][k] != out[1][k] for k in keys):
+        raise AssertionError(f"fleet: two runs with one seed differ: "
+                             f"{[{k: o[k] for k in keys} for o in out[:2]]}")
+    say("[smoke] fleet: two runs with one seed routed, requeued and learned "
+        "the node ratios alike")
+    params_cpu = to_cpu(params2)
+    for extra, card in (([], out[0]), (["--fleet-admission"], out[2])):
+        args = serve_mod.build_parser().parse_args(
+            base + extra + ["--device", "cpu"])
+        t0 = time.perf_counter()
+        run = serve_mod.serve_fleet(args, params=params_cpu, cfg=cfg)
+        wall = time.perf_counter() - t0
+        got = {"routed": run.router.routed.tolist(),
+               "requeued": run.router.n_requeued,
+               "prefill": run.router.table.ratios("prefill").tolist(),
+               "decode": run.router.table.ratios("decode").tolist(),
+               "shed": sum(r.finish_reason is FinishReason.SHED
+                           for r in run.requests),
+               "degraded": run.report.n_degraded}
+        label = " ".join(extra) or "(no admission)"
+        if any(card[k] != got[k] for k in keys):
+            raise AssertionError(
+                f"fleet {label}: the card's run differs from the CPU's: "
+                f"{ {k: card[k] for k in keys} } vs {got}")
+        say(f"[smoke] fleet {label}: the card's routed {card['routed']}, "
+            f"{card['requeued']} requeued, {card['shed']} shed, "
+            f"{card['degraded']} degraded and node ratios equal the same run on the CPU (serve wall {wall:.1f} s)")
+        cpu[label] = dict(got, serve_wall_s=wall)
+        del run
+    return {"runs": out, "cpu": cpu}
+
+
 def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
-                   i8_launches: int) -> list:
-    """One entry per kernel: ``launches`` from its own path's serving run;
-    ``ms``, ``plain_ms`` and ``bound_ms`` for one decode step's worth of its
+                   i8_launches: int, paths: dict) -> list:
+    """One entry per kernel: ``launches`` from its own path's serving run,
+    ``paths`` its launches on every other path that drives it (each run
+    with the counts set to 0 just before and read just after); ``ms``,
+    ``plain_ms`` and ``bound_ms`` for one decode step's worth of its
     launches (225 at the main path's shapes, M = 4; f32 x for Q4)."""
     rows = [r for r in phase2["rows"]
             if r["m"] == DECODE_M and r["dtype"] == "float32"]
@@ -1076,7 +1485,7 @@ def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
             "max_abs_err": phase2["max_abs_err"], "ms": ms,
             "plain_ms": plain, "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "per": per})
+            "library_ms": None, "per": per, "paths": paths[name]})
 
     def step_sum(m, key):
         return sum(r[key] * r["per_decode_step"] for r in p2i8["rows"]
@@ -1098,7 +1507,7 @@ def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
         # torch._int_mm takes only M > 16: no PyTorch call computes the
         # product at the serving path's M <= 8; at M = 32 and 64 it stands
         # below
-        "library_ms": None, "per": per,
+        "library_ms": None, "per": per, "paths": paths["int8_gemm"],
         **{f"at_m{m}": {"ms": step_sum(m, "int8_gemm_ms"),
                         "library_ms": step_sum(m, "library_ms"),
                         "library": "torch._int_mm on a - 128, + 128 * colsum"}
@@ -1175,8 +1584,26 @@ def main(argv=None) -> int:
     bhead = balanced_head_phase(counts, serve_mod, params, q4, q4_blocks)
     legacy = legacy_phase(serve_mod, params)
     phase4 = eager_vs_compiled(params)
+    torch.cuda.empty_cache()
+    topo = {"q4 dual-125h": serve_topology(
+                counts, serve_mod, params, "dual-125h", "q4", "q4_matmul_db",
+                Q4_VS_PLAIN_TOL, forward, init_state, Request, np_rng),
+            "int8 2s-12900k": serve_topology(
+                counts, serve_mod, params, "2s-12900k", "int8", "int8_gemm",
+                INT8_VS_PLAIN_TOL, forward, init_state, Request, np_rng)}
+    topo_eager = topology_eager_vs_compiled(counts, params)
+    fleet = fleet_phase(serve_mod, params)
+    paths = {"q4_matmul": {}, "q4_matmul_db": {}, "int8_gemm": {}}
+    paths["q4_matmul_db"]["topology dual-125h (captured and uncaptured, "
+                          "each)"] = topo["q4 dual-125h"]["launches"]
+    paths["int8_gemm"]["topology 2s-12900k (captured and uncaptured, "
+                       "each)"] = topo["int8 2s-12900k"]["launches"]
+    for label, got in topo_eager["launches"].items():
+        for name, n in got.items():
+            if n:
+                paths[name][f"{label} (2 layers)"] = n
     entries = kernel_entries(phase2, phase3["launches"], p2i8,
-                             p3i8["launches"])
+                             p3i8["launches"], paths)
     say(f"[smoke] total {time.perf_counter() - t_all:.1f} s on {head['card']}")
     if args.out:
         detail = {"card": head["card"], "build_s": head["build_s"],
@@ -1199,7 +1626,9 @@ def main(argv=None) -> int:
                            "decode": wall_i8, "profile": prof_i8,
                            "vs_plain": p5i8},
                   "lanes": lanes, "balanced_head": bhead, "legacy": legacy,
-                  "eager_vs_compiled": phase4}
+                  "eager_vs_compiled": phase4, "topology": topo,
+                  "topology_eager_vs_compiled": topo_eager["runs"],
+                  "fleet": fleet}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

@@ -284,9 +284,16 @@ def run_pass(log=None) -> list:
             d.close()
 
     def _topology_dispatch():
-        raise NotImplementedError(
-            "invariants self-test: two-level dispatch needs the topology "
-            "package, which is not ported yet")
+        from repro_torch.kernels.dispatch import GEMV_ISA
+        from repro_torch.runtime import KernelSpec
+        from repro_torch.topology.dispatch import TopologyDispatcher
+        topo = TopologyDispatcher("dual-125h", execute=False)
+        try:
+            spec = KernelSpec(name="gemv", isa=GEMV_ISA)
+            for _ in range(6):
+                topo.dispatch(spec, 4096, bytes_per_unit=2048.0)
+        finally:
+            topo.close()
 
     _guard("ratio-table EMA/normalization", _ratio_table)
     _guard("offset snapshots + shard plans", _offsets_and_plans)

@@ -291,11 +291,15 @@ MACHINES = {
 
 
 def make_machine(name: str, seed: int = 0):
-    """Resolve a flat hybrid CPU from :data:`MACHINES`.  ``seed`` is
-    forwarded to the constructor.  Multi-socket topology names belong to
-    the topology package, which the port does not carry yet."""
+    """Resolve a machine name: flat hybrid CPUs from :data:`MACHINES`, or a
+    multi-socket :class:`~repro_torch.topology.machine.MachineTopology`
+    from :data:`~repro_torch.topology.machine.TOPOLOGIES` (lazily imported
+    — the topology package builds on this module).  ``seed`` is forwarded
+    to whichever constructor matches."""
     if name in MACHINES:
         return MACHINES[name](seed)
-    raise NotImplementedError(
-        f"machine {name!r} is not a flat hybrid CPU ({sorted(MACHINES)}); "
-        f"multi-socket topologies are not ported yet")
+    from repro_torch.topology.machine import make_topology
+
+    # make_topology owns the topology registry and the unknown-name error
+    # (which lists both registries)
+    return make_topology(name, seed=seed)

@@ -25,13 +25,16 @@ the paper splits it across the parallel region:
 * **After the step** (host): :meth:`CompiledDispatcher.feedback` copies the
   tape's sizes to the host once, replays each recorded region through the
   dispatcher's virtual worker pools — same per-core time model, same Eq. 2
-  EMA updates, same bytes/busy bandwidth accounting — and refreshes the
-  snapshot for the next step.
+  EMA updates, same bytes/busy bandwidth accounting (two-level
+  socket-then-core for a :class:`~repro_torch.topology.TopologyDispatcher`)
+  — and refreshes the snapshot for the next step.
 
 :class:`CompiledDispatcher` wraps a flat
-:class:`~repro_torch.kernels.dispatch.HybridKernelDispatcher`; it is what
+:class:`~repro_torch.kernels.dispatch.HybridKernelDispatcher` or a
+:class:`~repro_torch.topology.TopologyDispatcher` (duck-typed to avoid the
+package cycle); it is what
 :class:`~repro_torch.models.balanced.BalancedTrunk` binds to in
-``mode="compiled"``.  Two-level topology dispatchers are not ported yet.
+``mode="compiled"``.
 """
 
 from __future__ import annotations
@@ -77,40 +80,56 @@ class CompiledSpec:
 
 
 def _introspect(layer):
-    """(kernel, K) for a balanced layer (duck-typed on storage)."""
+    """(kernel, K, placement-registry weight object) for a balanced layer
+    (duck-typed on storage)."""
     qw = getattr(layer, "qw", None)
     if qw is not None:  # BalancedQuantLinear
-        return "q4_matmul", qw.in_features
+        return "q4_matmul", qw.in_features, qw
     w = getattr(layer, "w", None)
     if w is None:
         raise TypeError(f"not a balanced linear: {type(layer).__name__}")
     if hasattr(w, "q"):  # BalancedLinear (QuantizedWeightI8)
-        return "int8_gemm", int(w.q.shape[1])
-    return "f32_matmul", int(w.shape[1])  # BalancedFp32Linear
+        return "int8_gemm", int(w.q.shape[1]), w.q
+    return "f32_matmul", int(w.shape[1]), w  # BalancedFp32Linear
 
 
 class CompiledDispatcher:
-    """Compiled lowering + between-step feedback replay over a flat
-    balanced dispatcher.
+    """Compiled lowering + between-step feedback replay over a balanced
+    dispatcher.
 
     One instance owns one :class:`OffsetSnapshot` on ``device`` (planned
     from the same Balancers the dispatcher uses), a spec registry, and the
     step's cost tape.  ``double_buffer`` picks the kernel: the
-    double-buffered :func:`q4_matmul_db` (default) or the direct one.
+    double-buffered :func:`q4_matmul_db` (default) or the direct one.  For
+    a socket-local topology dispatcher each boundary tensor concatenates
+    the per-socket core plans (outer socket split first, then each
+    socket's per-core split: one boundary per core of the machine), and
+    feedback replays both levels; the socket-oblivious baseline plans and
+    replays over its flattened machine.
     """
 
     def __init__(self, dispatcher, *, double_buffer: bool = True,
                  device="cuda"):
-        if getattr(dispatcher, "socket_dispatchers", None) is not None:
-            raise NotImplementedError(
-                "topology dispatchers are not ported yet")
         self.dispatcher = dispatcher
         self.double_buffer = double_buffer
         self.device = resolve_device(device)
-        self.n_workers = dispatcher.n_workers
+        sds = getattr(dispatcher, "socket_dispatchers", None)
+        self._topo = sds is not None and bool(getattr(
+            dispatcher, "socket_local", False))
+        self._oblivious = sds is not None and not self._topo
+        self._socket_cores = None
+        if self._topo:
+            self._socket_cores = [d.n_workers for d in sds]
+            self.n_workers = sum(self._socket_cores)
+        elif self._oblivious:
+            self.n_workers = dispatcher.flat.n_workers
+        else:
+            self.n_workers = dispatcher.n_workers
         self.snapshot = OffsetSnapshot(self._plan_counts, device=self.device)
         self._specs: List[CompiledSpec] = []
         self._by_name: Dict[str, CompiledSpec] = {}
+        # spec_id -> the weight object the trunk's placement registered
+        self._weights: Dict[int, object] = {}
         self._tape: Optional[list] = None
         # boundary tensor id -> (tensor, shard sizes): every projection of
         # one spec in a step reads one boundary tensor, so its sizes are
@@ -121,7 +140,7 @@ class CompiledDispatcher:
     def spec_for(self, layer, isa: str, kind: str) -> CompiledSpec:
         """The registered spec for one balanced layer under one (ISA,
         kind) — created (and its offset spec registered) on first use."""
-        kernel, k = _introspect(layer)
+        kernel, k, wobj = _introspect(layer)
         n = int(layer.out_features)
         key = kernel_key(isa, kind)
         name = f"{key}@{kernel}:{n}x{k}"
@@ -138,6 +157,7 @@ class CompiledDispatcher:
                             n=n, k=k, granularity=g)
         self._specs.append(spec)
         self._by_name[name] = spec
+        self._weights[spec.spec_id] = wobj
         self.snapshot.register(OffsetSpec(name=name, total=n, granularity=g))
         return spec
 
@@ -168,7 +188,15 @@ class CompiledDispatcher:
         through the dispatcher's cached Balancers."""
         spec = self._by_name[ospec.name]
         kspec = self._kernel_spec(spec, m=1)  # work model irrelevant to plan
-        return self.dispatcher._balancer(kspec).plan(spec.n).counts
+        if self._topo:
+            topo = self.dispatcher
+            outer = topo._balancer(kspec).plan(spec.n).counts
+            parts = [topo.socket_dispatchers[s]._balancer(kspec)
+                     .plan(int(c)).counts
+                     for s, c in enumerate(outer)]
+            return np.concatenate(parts)
+        flat = self.dispatcher.flat if self._oblivious else self.dispatcher
+        return flat._balancer(kspec).plan(spec.n).counts
 
     def refresh(self) -> Dict[str, torch.Tensor]:
         """Re-plan every registered call site from the current ratio
@@ -262,7 +290,10 @@ class CompiledDispatcher:
                 raise ValueError(
                     f"device shard sizes for {spec.name!r} cover "
                     f"{int(counts.sum())} rows, expected {spec.n}")
-            self._replay_flat(spec, m, counts, update)
+            if self._topo:
+                self._replay_topology(spec, m, counts, update)
+            else:
+                self._replay_flat(spec, m, counts, update)
         return self.refresh()
 
     def _replay_flat(self, spec: CompiledSpec, m: int, counts: np.ndarray,
@@ -270,6 +301,16 @@ class CompiledDispatcher:
         kspec = self._kernel_spec(spec, m)
         plan = Plan(counts=counts, key=kspec.table_key,
                     granularity=spec.granularity)
+        if self._oblivious:
+            topo = self.dispatcher
+            st = topo.flat.dispatch(
+                kspec, spec.n, None,
+                bytes_per_unit=self._bytes_per_unit(spec),
+                work_scale=topo._oblivious_scale(spec.isa),
+                update=update, plan=plan)
+            if topo.keep_stats:
+                topo.stats.append(st)
+            return
         disp = self.dispatcher
         # a dispatcher without a time model has nothing to replay against:
         # keep the accounting, skip the updates
@@ -277,3 +318,44 @@ class CompiledDispatcher:
         disp.dispatch(kspec, spec.n, None,
                       bytes_per_unit=self._bytes_per_unit(spec),
                       update=update and model_ok, plan=plan)
+
+    def _replay_topology(self, spec: CompiledSpec, m: int,
+                         counts: np.ndarray, update: bool) -> None:
+        """Two-level replay: the inner per-core regions, one per socket
+        (each socket's pool advances by its own makespan), then the outer
+        socket-level report with ``units=`` feedback — mirroring
+        ``TopologyDispatcher._split`` for a plan fixed by the snapshot.
+        ``counts`` holds one entry per core of the machine, socket after
+        socket."""
+        topo = self.dispatcher
+        kspec = self._kernel_spec(spec, m)
+        bpu = self._bytes_per_unit(spec)
+        parts = np.split(counts, np.cumsum(self._socket_cores)[:-1])
+        socket_counts = np.array([int(p.sum()) for p in parts],
+                                 dtype=np.int64)
+        placement = topo.placement_for(self._weights.get(spec.spec_id),
+                                       spec.n)
+        times = np.zeros(topo.n_sockets)
+        lo = 0
+        for s, c in enumerate(socket_counts):
+            hi = lo + int(c)
+            if c > 0:
+                scale = topo._work_scale(spec.isa, s, (lo, hi), placement)
+                st = topo.socket_dispatchers[s].dispatch(
+                    kspec, int(c), None, bytes_per_unit=bpu,
+                    work_scale=scale, update=update,
+                    plan=Plan(counts=parts[s], key=kspec.table_key,
+                              granularity=spec.granularity))
+                times[s] = st.makespan
+            lo = hi
+        bal = topo._balancer(kspec)
+        plan = Plan(counts=socket_counts, key=kspec.table_key,
+                    granularity=spec.granularity)
+        moved = float(spec.n) * bpu
+        st = bal.report(plan, times, update=update and topo.dynamic,
+                        label=f"{kspec.name}@{kspec.table_key}",
+                        bytes_moved=moved)
+        if moved > 0 and st.makespan > 0:
+            topo._account(spec.isa, moved, st.makespan)
+        if topo.keep_stats:
+            topo.stats.append(st)

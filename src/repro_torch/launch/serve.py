@@ -22,9 +22,21 @@ one batched trunk call; ``--legacy-batch`` runs one round of the seed-era
 whole-batch ``RoutedServer.serve_batch``.  On the card the decode step of
 a compiled trunk (or of the dense model) runs as one captured CUDA graph.
 
+``--topology`` serves on a NUMA topology of the machine model: the
+balanced trunk dispatches socket-local (a socket-level ratio split over
+per-socket core splits, NUMA-placed weights) and the virtual clock runs
+on the flattened machine; it implies ``--balanced-trunk``.  ``--fleet``
+serves a default heterogeneous fleet (NUMA flagship + NUMA desktop + flat
+box + throttled box, one engine per socket) behind the recursive
+:class:`~repro_torch.fleet.FleetRouter`, under diurnal heavy-tailed
+traffic with a mid-run failure window; ``--fleet-policy`` picks learned,
+round-robin or static routing and ``--fleet-admission`` adds the SLO-aware
+front door.  ``--trace``, ``--metrics`` and ``--flight-recorder`` write a
+Perfetto trace, the run's metrics and the decision ring of the virtual
+clock.
+
 ``--device cpu`` runs the same path with the kernels' plain torch version.
-The fleet and topology modes, the kernel-tuner cache and the
-observability exporters are not ported yet: those flags exit with a
+The kernel-tuner cache is not ported yet: ``--tuner-cache`` exits with a
 message.
 """
 
@@ -39,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.core import events as _ev
 from repro_torch.core.hybrid_sim import MACHINES
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (
@@ -61,16 +74,14 @@ from repro_torch.serving import (
     ServeEngine,
     poisson_requests,
 )
+from repro_torch.topology import TOPOLOGIES, TopologyDispatcher
 
 # flag -> what it needs that the port does not carry yet
 NOT_PORTED = {
-    "fleet": "the fleet package",
-    "topology": "the topology package",
-    "trace": "the observability exporters",
-    "metrics": "the observability exporters",
-    "flight_recorder": "the observability exporters",
     "tuner_cache": "the kernel tuner front end (TunedMatmul)",
 }
+# the fleet's SLOs (the reference's), also those the flight recorder burns on
+FLEET_SLO_TTFT, FLEET_SLO_TPOT = 2.0, 0.25
 
 
 def replica_slot_counts(batch: int, replicas: int) -> list:
@@ -122,14 +133,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "dynamic-u8 x s8 CUDA GEMM, or fp32 torch.matmul")
     ap.add_argument("--legacy-batch", action="store_true",
                     help="run the seed-era whole-batch serve_batch path")
-    ap.add_argument("--fleet", action="store_true", help="(not ported yet)")
-    ap.add_argument("--topology", default=None, help="(not ported yet)")
+    ap.add_argument("--topology", default=None,
+                    choices=sorted(TOPOLOGIES) + sorted(MACHINES),
+                    help="serve on a NUMA topology: the balanced trunk "
+                         "dispatches socket-local (two-level ratio split, "
+                         "NUMA-placed weights) and the virtual clock runs "
+                         "on the flattened machine; implies "
+                         "--balanced-trunk (flat machine names are the "
+                         "1-socket special case)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="serve on the default heterogeneous 4-node fleet "
+                         "through the recursive FleetRouter (diurnal "
+                         "traffic + mid-run failure window)")
+    ap.add_argument("--fleet-policy", default="learned",
+                    choices=["learned", "round_robin", "static"],
+                    help="fleet routing policy (with --fleet)")
+    ap.add_argument("--fleet-admission", action="store_true",
+                    help="enable SLO-aware admission control (queue cap, "
+                         "graceful degradation) in front of the fleet")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="(not ported yet)")
+                    help="write a Chrome/Perfetto trace_event JSON of the "
+                         "run: spans on the virtual clock at every "
+                         "balancing level plus ratio / bandwidth / "
+                         "capacity counter tracks")
     ap.add_argument("--metrics", default=None, metavar="PATH",
-                    help="(not ported yet)")
+                    help="write run metrics (TTFT/TPOT histograms, "
+                         "goodput): Prometheus text exposition, or a JSON "
+                         "dump when PATH ends in .json")
     ap.add_argument("--flight-recorder", default=None, metavar="PATH",
-                    help="(not ported yet)")
+                    help="record balancer decisions (ratio reports, offset "
+                         "refreshes, capacity/admission events) in a "
+                         "bounded ring dumped to PATH; auto-dumps on SLO "
+                         "burn or contract trip")
     ap.add_argument("--balanced-head", action="store_true",
                     help="run the LM head as balanced per-core Q4 kernel "
                          "shards (hybrid kernel dispatch) instead of inside "
@@ -139,14 +174,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise SystemExit naming the first requested mode the port lacks."""
+    """Apply the reference's flag rules (``--topology`` implies
+    ``--balanced-trunk`` and excludes ``--machine`` and ``--balanced-head``;
+    ``--fleet`` is a standalone mode), and raise SystemExit naming the
+    first requested mode the port lacks."""
     for flag, needs in NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
                              f"(needs {needs})")
+    if args.topology:
+        if args.balanced_head:
+            raise SystemExit("--topology dispatches the whole trunk; "
+                             "drop --balanced-head")
+        if args.machine is not None:
+            raise SystemExit(
+                "--topology provides the virtual clock (the topology's "
+                "flattened machine); drop --machine")
+        args.balanced_trunk = True
     if args.balanced_head and args.balanced_trunk:
         raise SystemExit("--balanced-trunk already includes the head; "
                          "drop --balanced-head")
+    if args.fleet and (args.legacy_batch or args.balanced_head
+                       or args.balanced_trunk or args.topology):
+        raise SystemExit("--fleet is a standalone mode: the fleet owns "
+                         "its topologies and cost models")
     for flag in ("balanced_trunk", "balanced_head"):
         if getattr(args, flag) and args.machine == "wall":
             raise SystemExit(f"--machine wall with "
@@ -161,7 +212,7 @@ class ServeRun:
     cfg: object
     device: torch.device
     engines: List[ContinuousBatchingEngine]
-    dispatchers: List[HybridKernelDispatcher]
+    dispatchers: list     # HybridKernelDispatcher or TopologyDispatcher
     inflight: InflightDispatcher
     requests: List[Request]
     routed: np.ndarray
@@ -175,21 +226,28 @@ def build_engines(args, cfg, params, device, *,
                   double_buffer: bool = True,
                   cuda_graph: bool = True) -> tuple:
     """One continuous-batching engine (and, with ``--balanced-trunk`` or
-    ``--balanced-head``, one virtual-clock kernel dispatcher) per replica.
-    ``double_buffer=False`` lowers a Q4 trunk onto the direct kernel
-    instead of the double-buffered one; ``cuda_graph=False`` runs the
-    decode step uncaptured on the card."""
+    ``--balanced-head``, one virtual-clock kernel dispatcher) per replica;
+    with ``--topology`` the dispatcher is a socket-local
+    :class:`~repro_torch.topology.TopologyDispatcher` and the clock runs
+    on the topology's flattened machine.  ``double_buffer=False`` lowers a
+    Q4 trunk onto the direct kernel instead of the double-buffered one;
+    ``cuda_graph=False`` runs the decode step uncaptured on the card."""
     chunk = args.prefill_chunk if args.prefill_chunk > 0 else None
     max_seq = args.prompt_len + args.steps + 8
     engines, dispatchers = [], []
+    clock = args.topology or args.machine
     for i, n_slots in enumerate(replica_slot_counts(args.batch,
                                                     args.replicas)):
         cost = (None if args.machine == "wall"
-                else HybridPhaseCost(args.machine, seed=args.seed + i))
+                else HybridPhaseCost(clock, seed=args.seed + i))
         head, trunk = None, None
         if args.balanced_trunk:
-            disp = HybridKernelDispatcher.virtual(
-                args.machine, seed=args.seed + i, keep_stats=False)
+            if args.topology:
+                disp = TopologyDispatcher(args.topology, seed=args.seed + i,
+                                          keep_stats=False)
+            else:
+                disp = HybridKernelDispatcher.virtual(
+                    args.machine, seed=args.seed + i, keep_stats=False)
             dispatchers.append(disp)
             trunk = BalancedTrunk.from_params(cfg, params, disp,
                                               quant=args.trunk_quant,
@@ -214,7 +272,8 @@ def setup(args, params: Optional[dict] = None, cfg=None) -> tuple:
     ``args``: ``params`` (the port's layout, on the device) replaces the
     seeded random weights, ``cfg`` the ``--arch`` / ``--preset`` one."""
     check_ported(args)
-    args.machine = args.machine or "ultra-125h"
+    if not args.topology:   # a topology is its own clock
+        args.machine = args.machine or "ultra-125h"
     device = resolve_device(args.device)
     if cfg is None:
         cfg = (get_config(args.arch) if args.preset == "full"
@@ -332,7 +391,9 @@ def report_lines(args, run: ServeRun) -> list:
                      f"membw spread={kt.max() / kt.min():.2f}x "
                      f"achieved_bw_frac="
                      f"{d0.achieved_bandwidth_fraction():.2f}")
-    elif run.dispatchers:
+    if args.topology:
+        lines += topology_lines(args, run)
+    elif args.balanced_trunk and run.clock == "virtual":
         d0 = run.dispatchers[0]
         for kind in TRUNK_KINDS:
             key = kernel_key(GEMV_ISA, kind)
@@ -348,15 +409,206 @@ def report_lines(args, run: ServeRun) -> list:
     return lines
 
 
+def topology_lines(args, run: ServeRun) -> list:
+    """The ``--topology`` printout of replica 0 (the reference's): the
+    topology, the trunk's placement, the socket split per trunk kind and
+    the per-socket and aggregate achieved-bandwidth fractions — all of
+    the machine model, on the virtual clock."""
+    d0 = run.dispatchers[0]
+    lines = [f"[serve] topology {args.topology}: "
+             f"{d0.topology.n_sockets} socket(s), "
+             f"aggregate {d0.topology.aggregate_bandwidth / 1e9:.1f} GB/s"]
+    if run.engines[0].placement is not None:
+        lines += run.engines[0].placement.lines()
+    for kind in TRUNK_KINDS:
+        key = kernel_key(GEMV_ISA, kind)
+        if key in d0.table.keys():
+            lines.append(f"[serve] socket split {key}: "
+                         f"{np.round(d0.socket_ratios(key), 3).tolist()}")
+    fracs = [d0.achieved_bandwidth_fraction(socket=s)
+             for s in range(d0.topology.n_sockets)]
+    lines.append(f"[serve] per-socket decode achieved_bw_frac (replica 0): "
+                 f"{[round(f, 2) for f in fracs]}")
+    lines.append(f"[serve] aggregate decode achieved_bw_frac (replica 0): "
+                 f"{d0.achieved_bandwidth_fraction():.2f}")
+    return lines
+
+
+# ------------------------------------------------------------------ fleet --
+@dataclass
+class FleetRun:
+    """What one ``--fleet`` run produced."""
+
+    cluster: object       # repro_torch.fleet.Cluster
+    router: object        # repro_torch.fleet.FleetRouter
+    requests: list        # every finished request, shed and aborted included
+    report: LatencyReport
+    warm_started: bool    # the node table was loaded from --ratios
+
+
+def fleet_specs(args) -> tuple:
+    """The default heterogeneous fleet: a NUMA flagship and a NUMA desktop
+    (one engine per socket, 2 prefill lanes each), a flat box, and a flat
+    box throttled 3x."""
+    from repro_torch.fleet import NodeSpec
+
+    return (
+        NodeSpec("big", "dual-125h", max_slots=args.batch, prefill_lanes=2),
+        NodeSpec("mid", "2s-12900k", max_slots=args.batch, prefill_lanes=2),
+        NodeSpec("flat", "ultra-125h", max_slots=args.batch),
+        NodeSpec("slow", "ultra-125h", max_slots=args.batch, throttle=3.0),
+    )
+
+
+def serve_fleet(args, params: Optional[dict] = None, *,
+                cfg=None) -> FleetRun:
+    """``--fleet``: the default fleet behind the recursive FleetRouter,
+    under diurnal heavy-tailed traffic with a failure window on the
+    flagship from a quarter to 0.6 of the expected span.  Every engine
+    runs on the device of ``args``; ``params`` and ``cfg`` are those of
+    :func:`setup`."""
+    from repro_torch.fleet import (AdmissionController, Cluster,
+                                   FleetRouter, failure_window,
+                                   fleet_requests)
+
+    cfg, device, params = setup(args, params, cfg)
+    max_seq = args.prompt_len + args.steps + 8
+    specs = fleet_specs(args)
+    cluster = Cluster.build(specs, cfg, params, max_seq=max_seq,
+                            seed=args.seed, device=device)
+    admission = None
+    if args.fleet_admission:
+        admission = AdmissionController(queue_cap=6 * len(specs),
+                                        degrade_depth=3 * len(specs))
+    # --ratios warm-starts/persists the *node-level* fleet table here
+    table = RatioTable(len(specs), alpha=0.3)
+    store = RatioStore(args.ratios) if args.ratios else None
+    warm = store is not None and store.load_into(table)
+    router = FleetRouter(cluster, policy=args.fleet_policy, table=table,
+                         slo_ttft=FLEET_SLO_TTFT, slo_tpot=FLEET_SLO_TPOT,
+                         admission=admission)
+    requests = fleet_requests(
+        args.requests, base_rate=args.rate, vocab_size=cfg.vocab_size,
+        prompt_len=(4, args.prompt_len), max_new_tokens=args.steps,
+        seed=args.seed)
+    span = args.requests / args.rate
+    events = failure_window("big", fail_at=0.25 * span,
+                            recover_at=0.6 * span)
+    t_wall = time.perf_counter()
+    done = router.run(requests, events)
+    report = LatencyReport.from_requests(
+        done, slo_ttft=FLEET_SLO_TTFT, slo_tpot=FLEET_SLO_TPOT,
+        wall_duration=time.perf_counter() - t_wall)
+    if store is not None:
+        store.save(router.table)
+    return FleetRun(cluster=cluster, router=router, requests=done,
+                    report=report, warm_started=warm)
+
+
+def fleet_lines(args, run: FleetRun) -> list:
+    """The printout of a ``--fleet`` run (the reference's)."""
+    router = run.router
+    names = [n.name for n in run.cluster.nodes]
+    lines = []
+    if run.warm_started:
+        lines.append(f"[serve] warm-started fleet node ratios from "
+                     f"{args.ratios}")
+    lines.append(f"[serve] fleet {names} policy={args.fleet_policy} "
+                 f"routed={router.routed.tolist()} "
+                 f"requeued={router.n_requeued}")
+    lines += run.report.lines()
+    lines.append(f"[serve] node prefill ratios: "
+                 f"{np.round(router.table.ratios(PREFILL), 3).tolist()}")
+    lines.append(f"[serve] node decode  ratios: "
+                 f"{np.round(router.table.ratios(DECODE), 3).tolist()}")
+    st = router.last_stats.get(DECODE)
+    if st is not None:
+        lines.append(f"[serve] recursive decode stats: {len(st.children)} "
+                     f"node domains under the fleet table")
+    if args.ratios:
+        lines.append(f"[serve] saved fleet node ratios to {args.ratios}")
+    return lines
+
+
+# ----------------------------------------------------------- observability --
+class Observers:
+    """The ``--trace``, ``--flight-recorder`` and ``--metrics`` sinks of
+    one run: installed before the mode runs, written after it returns (or
+    raises) by :meth:`close`, which returns the lines to print."""
+
+    def __init__(self, args):
+        self.args = args
+        self.tracer = self.recorder = self.registry = None
+        self._prev_tracer = self._prev_recorder = None
+        if args.trace:
+            from repro_torch.obs import SpanTracer
+            self.tracer = SpanTracer()
+            self._prev_tracer = _ev.install(self.tracer)
+        if args.flight_recorder:
+            from repro_torch.obs import FlightRecorder
+            self.recorder = FlightRecorder(
+                path=args.flight_recorder,
+                slo_ttft=FLEET_SLO_TTFT if args.fleet else None,
+                slo_tpot=FLEET_SLO_TPOT if args.fleet else None)
+            self._prev_recorder = _ev.install_recorder(self.recorder)
+        if args.metrics:
+            from repro_torch.obs import MetricsRegistry
+            self.registry = MetricsRegistry()
+
+    def close(self) -> list:
+        args, lines = self.args, []
+        if self.tracer is not None:
+            _ev.install(self._prev_tracer)
+            self.tracer.write(args.trace)
+            lines.append(f"[serve] wrote trace to {args.trace} "
+                         f"({self.tracer.n_spans} spans, "
+                         f"{self.tracer.n_counters} counter samples, "
+                         f"{self.tracer.n_instants} instants)")
+        if self.recorder is not None:
+            _ev.install_recorder(self._prev_recorder)
+            if self.recorder.last_dump is None:
+                self.recorder.trip("exit")
+            lines.append(f"[serve] flight recorder: "
+                         f"{len(self.recorder.records())} records, "
+                         f"{len(self.recorder.trips)} trip(s) -> "
+                         f"{args.flight_recorder}")
+        if self.registry is not None:
+            if args.metrics.endswith(".json"):
+                self.registry.write_json(args.metrics)
+            else:
+                with open(args.metrics, "w", encoding="utf-8") as fh:
+                    fh.write(self.registry.prometheus_text())
+            lines.append(f"[serve] wrote metrics to {args.metrics}")
+        return lines
+
+
+def run_mode(args, registry=None) -> list:
+    """Run the selected mode (fleet / legacy / default) and return its
+    printout; the run's latency report is published into ``registry``
+    when one is given."""
+    if args.fleet:
+        run = serve_fleet(args)
+        if registry is not None:
+            run.report.publish(registry)
+        return fleet_lines(args, run)
+    if args.legacy_batch:
+        return legacy_lines(serve_legacy(args))
+    run = serve(args)
+    if registry is not None:
+        run.report.publish(registry)
+    return report_lines(args, run)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.legacy_batch:
-        for line in legacy_lines(serve_legacy(args)):
+    check_ported(args)
+    observers = Observers(args)
+    try:
+        for line in run_mode(args, observers.registry):
             print(line)
-        return 0
-    run = serve(args)
-    for line in report_lines(args, run):
-        print(line)
+    finally:
+        for line in observers.close():
+            print(line)
     return 0
 
 

@@ -17,8 +17,7 @@ continuous-batching engines.  New callers should use
 :class:`~repro_torch.serving.dispatch.InflightDispatcher`.
 
 Where the reference jits its step functions, the port captures the decode
-step as one CUDA graph (:mod:`.step_graph`).  The topology wiring is not
-ported yet.
+step as one CUDA graph (:mod:`.step_graph`).
 """
 
 from __future__ import annotations
@@ -206,8 +205,6 @@ class ContinuousBatchingEngine:
                  sampler: Optional[Callable] = None, cost_model=None,
                  balanced_head=None, balanced_trunk=None, topology=None,
                  device="cuda", cuda_graph: bool = True):
-        if topology is not None:
-            raise NotImplementedError("topology= is not ported yet")
         if prefill_lanes < 1:
             raise ValueError("prefill_lanes must be >= 1")
         if balanced_head is not None and balanced_trunk is not None \
@@ -224,6 +221,14 @@ class ContinuousBatchingEngine:
         self.prefill_lanes = prefill_lanes
         self.balanced_trunk = balanced_trunk
         self.balanced_head = balanced_head
+        # NUMA wiring: a balanced trunk bound to a repro_torch.topology.
+        # TopologyDispatcher is adopted automatically — its weights are
+        # placed (column ranges pinned to the socket that streams them, in
+        # the machine model) and the topology is exposed for telemetry.
+        # Passing ``topology=`` asserts which machine the trunk must be
+        # balanced over.
+        self.topology, self.placement = self._adopt_topology(
+            balanced_trunk, topology)
         self._apply_head = (balanced_head is None
                             and (balanced_trunk is None
                                  or balanced_trunk.head is None))
@@ -252,6 +257,33 @@ class ContinuousBatchingEngine:
         # the ratio tables currently hold, rewritten after every step.
         self._offsets = (balanced_trunk.compiled_refresh()
                          if self._compiled_trunk else None)
+
+    @staticmethod
+    def _adopt_topology(trunk, topology):
+        """Resolve the engine's machine topology from the balanced trunk's
+        dispatcher (placing the trunk's weights NUMA-aware when the
+        dispatcher is socket-local) and validate an explicit ``topology=``
+        against it.  Returns (topology, TrunkPlacement) — (None, None)
+        for flat dispatch."""
+        from repro_torch.topology import TopologyDispatcher, place_trunk
+
+        disp = getattr(trunk, "dispatcher", None)
+        if not isinstance(disp, TopologyDispatcher):
+            if topology is not None:
+                raise ValueError(
+                    "topology= requires a balanced_trunk bound to a "
+                    "repro_torch.topology.TopologyDispatcher (the trunk "
+                    "decides where its weights execute)")
+            return None, None
+        adopted = disp.topology
+        if topology is not None:
+            name = topology if isinstance(topology, str) else topology.name
+            if (topology is not adopted and name != adopted.name):
+                raise ValueError(
+                    f"topology= names {name!r} but the balanced trunk is "
+                    f"balanced over {adopted.name!r}")
+        placement = place_trunk(trunk) if disp.socket_local else None
+        return adopted, placement
 
     # ------------------------------------------------------------ the step --
     def _run(self, tokens: torch.Tensor, state, pos, phase: str,

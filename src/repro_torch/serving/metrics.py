@@ -144,13 +144,40 @@ class LatencyReport:
         }
 
     def publish(self, registry) -> None:
-        """Mirror this report into a :class:`repro.obs.MetricsRegistry`:
+        """Mirror this report into a :class:`repro_torch.obs.MetricsRegistry`:
         TTFT/TPOT histograms on the explicit SLO buckets plus
-        request/token counters and throughput/goodput gauges.  The metrics
-        registry is not ported yet."""
-        raise NotImplementedError(
-            "LatencyReport.publish: the metrics registry (obs) is not "
-            "ported yet")
+        request/token counters and throughput/goodput gauges."""
+        from repro_torch.obs import TPOT_BUCKETS, TTFT_BUCKETS
+
+        registry.histogram(
+            "repro_ttft_seconds", "Time to first token",
+            buckets=TTFT_BUCKETS).observe_many(self.ttft_samples)
+        registry.histogram(
+            "repro_tpot_seconds", "Time per output token",
+            buckets=TPOT_BUCKETS).observe_many(self.tpot_samples)
+        registry.counter(
+            "repro_requests_total",
+            "Finished requests by outcome").inc(
+                self.n_finished - self.n_shed, outcome="served")
+        if self.n_shed:
+            registry.counter("repro_requests_total",
+                             "Finished requests by outcome").inc(
+                                 self.n_shed, outcome="shed")
+        if self.n_degraded:
+            registry.counter("repro_requests_total",
+                             "Finished requests by outcome").inc(
+                                 self.n_degraded, outcome="degraded")
+        registry.counter(
+            "repro_generated_tokens_total",
+            "Tokens generated by served requests").inc(
+                self.generated_tokens)
+        registry.gauge(
+            "repro_throughput_tokens_per_second",
+            "Generated tokens per engine-clock second").set(
+                self.throughput)
+        registry.gauge(
+            "repro_goodput_requests_per_second",
+            "SLO-meeting finished requests per second").set(self.goodput)
 
     def lines(self, prefix: str = "[serve]") -> list:
         fmt = lambda d: " ".join(

@@ -19,8 +19,6 @@ import repro_torch.runtime as port_rt
 import repro_torch.serving as port_serving
 from repro.kernels.compiled import CompiledDispatcher as RefCompiled
 from repro.models.layers import BalancedQuantLinear as RefBQL
-from repro_torch.analysis import invariants as port_invariants
-from repro_torch.core.hybrid_sim import make_machine as port_make_machine
 from repro_torch.kernels.compiled import CompiledDispatcher as PortCompiled
 from repro_torch.models.layers import BalancedQuantLinear as PortBQL
 
@@ -239,16 +237,3 @@ def test_hybrid_phase_cost_seconds_equal(machine):
     np.testing.assert_array_equal(ref[1], port[1])
     np.testing.assert_array_equal(ref[2], port[2])
     assert ref[3] == port[3]
-
-
-# ------------------------------------------- what the port does not carry --
-def test_unported_lazy_imports_raise_clearly():
-    """The three copies whose reference reaches back into modules the port
-    does not carry yet raise instead of importing them."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_make_machine("dual-125h")
-    report = port_serving.LatencyReport.from_requests([])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        report.publish(object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_invariants.run_pass()

@@ -271,10 +271,14 @@ def test_gpu_int8_eager_shards_equal_one_launch_at_m32(cuda):
 
 
 # ------------------------------------------------ the captured decode step --
-# compiled trunks (quant, double_buffer) and the dense model, whose decode
-# steps the engine captures as one CUDA graph
+# compiled trunks (quant, double_buffer[, topology]) and the dense model,
+# whose decode steps the engine captures as one CUDA graph; under a
+# socket-local topology each boundary tensor holds one entry per core of
+# both sockets (28 on dual-125h, 32 on 2s-12900k)
 _CAPTURED = {"q4-db": ("q4", True), "q4-direct": ("q4", False),
-             "int8": ("int8", True), "fp32": ("fp32", True), "dense": None}
+             "int8": ("int8", True), "fp32": ("fp32", True), "dense": None,
+             "q4-db-dual-125h": ("q4", True, "dual-125h"),
+             "int8-2s-12900k": ("int8", True, "2s-12900k")}
 
 
 def _graph_engine(device, which, cuda_graph=True):
@@ -284,19 +288,24 @@ def _graph_engine(device, which, cuda_graph=True):
     from repro_torch.models import BalancedTrunk, init_params
     from repro_torch.serving import (ContinuousBatchingEngine,
                                      HybridPhaseCost, poisson_requests)
+    from repro_torch.topology import TopologyDispatcher
 
     cfg = reduced_config("llama2-7b")
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device=device)
-    trunk = None
+    trunk, clock = None, "ultra-125h"
     if _CAPTURED[which] is not None:
-        quant, db = _CAPTURED[which]
-        trunk = BalancedTrunk.from_params(
-            cfg, params, HybridKernelDispatcher.virtual("ultra-125h"),
-            quant=quant, double_buffer=db, device=device)
+        quant, db, *topology = _CAPTURED[which]
+        if topology:
+            clock = topology[0]
+            disp = TopologyDispatcher(clock)
+        else:
+            disp = HybridKernelDispatcher.virtual(clock)
+        trunk = BalancedTrunk.from_params(cfg, params, disp, quant=quant,
+                                          double_buffer=db, device=device)
     engine = ContinuousBatchingEngine(
         cfg, params, max_slots=3, max_seq=32, prefill_chunk=4,
-        cost_model=HybridPhaseCost("ultra-125h"), balanced_trunk=trunk,
+        cost_model=HybridPhaseCost(clock), balanced_trunk=trunk,
         device=device, cuda_graph=cuda_graph)
     for r in poisson_requests(3, rate=0, vocab_size=cfg.vocab_size,
                               prompt_len=6, max_new_tokens=10, seed=0):
@@ -524,3 +533,110 @@ def test_gpu_sync_inside_capture_raises(cuda, which):
                 engine.step()
         assert engine._graph is not None and engine._graph.graph is None
     torch.cuda.synchronize()
+
+
+# ----------------------------------------------------------- the topology --
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["q4-db-dual-125h", "int8-2s-12900k"])
+def test_gpu_topology_snapshot_written_in_place(cuda, which):
+    """Under a socket-local topology each projection's boundary tensor
+    (one entry per core of both sockets, plus one) keeps its address when
+    a new socket split and new per-socket core splits are refreshed, and
+    the next replay's tape follows them."""
+    import numpy as np
+
+    engine = _graph_engine(cuda, which)
+    _until_all_decoding(engine)
+    trunk = engine.balanced_trunk
+    ctx = trunk._compiled()
+    topo = trunk.dispatcher
+    cores = sum(d.n_workers for d in topo.socket_dispatchers)
+    snap = ctx.snapshot.device()
+    ptrs = {name: t.data_ptr() for name, t in snap.items()}
+    assert {t.numel() for t in snap.values()} == {cores + 1}
+    _, recs = engine._decode()
+    before = torch.stack([r["sizes"] for r in recs]).cpu().numpy()
+    for table in [topo.table] + [d.table for d in topo.socket_dispatchers]:
+        for key in table.keys():
+            table.set(key, np.linspace(1.0, 6.0, table.n_workers))
+    engine._offsets = trunk.compiled_refresh()
+    assert {n: t.data_ptr() for n, t in engine._offsets.items()} == ptrs
+    _, again = engine._decode()
+    assert again is recs
+    after = torch.stack([r["sizes"] for r in recs]).cpu().numpy()
+    for rec, got in zip(recs, after):
+        want = ctx.snapshot.counts(ctx._specs[rec["spec"]].name)
+        assert len(got) == cores and got.tolist() == want.tolist()
+    assert (after != before).any()
+    engine.run_until_idle()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology", ["dual-125h", "2s-12900k"])
+@pytest.mark.parametrize("kernel", ["q4", "int8"])
+def test_gpu_topology_eager_shards_equal_one_launch(cuda, topology, kernel):
+    """Eager topology shards — a socket split, then one launch per
+    non-empty core shard of each socket, the outputs concatenated along N
+    — equal one launch over the whole weight, bitwise."""
+    import numpy as np
+
+    from repro_torch.topology import TopologyDispatcher
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    disp = TopologyDispatcher(topology, execute=True)
+    disp.table.set("membw", np.array([1.0, 3.0]))
+    disp.table.set("avx_vnni", np.array([3.0, 1.0]))
+    before = (K.q4_matmul.launches, I8.int8_gemm.launches)
+    if kernel == "q4":
+        x = torch.randn((4, 4096), generator=gen, device=cuda)
+        qw = quantize_q4_0(torch.randn((11008, 4096), generator=gen,
+                                       device=cuda))
+        y = disp.q4_matmul(x, qw)
+        want = K.q4_matmul_db(x, qw, q4_blocks(4096)[2])
+    else:
+        a = torch.randint(0, 256, (4, 4096), generator=gen, device=cuda,
+                          dtype=torch.int32).to(torch.uint8)
+        w = torch.randint(-127, 128, (11008, 4096), generator=gen,
+                          device=cuda, dtype=torch.int32).to(torch.int8)
+        y = disp.int8_gemm(a, w)
+        want = I8.int8_gemm(a, w)
+    torch.cuda.synchronize()
+    shards = sum(int((d.last_stats.counts > 0).sum())
+                 for d in disp.socket_dispatchers)
+    launched = (K.q4_matmul.launches - before[0],
+                I8.int8_gemm.launches - before[1] - (kernel == "int8"))
+    assert launched == ((shards, 0) if kernel == "q4" else (0, shards))
+    assert shards > 16 and torch.equal(y, want)
+
+
+@pytest.mark.gpu
+def test_gpu_fleet_engines_live_on_the_card(cuda):
+    """Every engine of a fleet node runs on the card: its slot caches are
+    there, its decode step is captured, and a seeded run finishes every
+    request."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.fleet import (Cluster, FleetRouter, NodeSpec,
+                                   failure_window, fleet_requests)
+    from repro_torch.models import init_params
+
+    cfg = reduced_config("llama2-7b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    cluster = Cluster.build(
+        (NodeSpec("big", "dual-125h", max_slots=2, prefill_lanes=2),
+         NodeSpec("flat", "ultra-125h", max_slots=2)),
+        cfg, params, max_seq=32, device=cuda)
+    router = FleetRouter(cluster)
+    done = router.run(fleet_requests(8, base_rate=20.0,
+                                     vocab_size=cfg.vocab_size,
+                                     prompt_len=(4, 12), max_new_tokens=4,
+                                     seed=0),
+                      failure_window("flat", fail_at=0.1, recover_at=0.2))
+    torch.cuda.synchronize()
+    engines = [e for n in cluster.nodes for e in n.engines]
+    assert len(engines) == 3 and len(done) == 8
+    assert all(r.finish_time is not None for r in done)
+    assert all(c.k.device.type == "cuda" and c.idx.device.type == "cuda"
+               for e in engines for c in e.manager.state)
+    assert all(e.captured for e in engines)
+    assert any(e._graph is not None and e._graph.replays for e in engines)

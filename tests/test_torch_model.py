@@ -288,26 +288,20 @@ def test_direct_kernel_lowering_equals_double_buffered(model):
 
 
 @pytest.mark.parametrize("case", ["bridge", "topology", "arch",
-                                  "topology_dispatcher", "no_card"])
+                                  "no_card"])
 def test_unported_paths_raise(model, case, monkeypatch):
     cfg_p, params_p = model[1], model[3]
     disp = PortDisp.virtual("ultra-125h")
-    from repro_torch.kernels.compiled import CompiledDispatcher
     from repro_torch.serving import ContinuousBatchingEngine
-
-    class SocketDispatcher:
-        socket_dispatchers = [disp, disp]
 
     calls = {
         "bridge": (ValueError, lambda: BalancedTrunk.from_params(
             cfg_p, params_p, disp, mode="bridge", device="cpu")),
-        "topology": (NotImplementedError, lambda: ContinuousBatchingEngine(
-            cfg_p, params_p, max_slots=2, max_seq=16, topology=object(),
+        # the reference's error: topology= needs a topology trunk
+        "topology": (ValueError, lambda: ContinuousBatchingEngine(
+            cfg_p, params_p, max_slots=2, max_seq=16, topology="dual-125h",
             device="cpu")),
         "arch": (KeyError, lambda: get_config("granite-8b")),
-        "topology_dispatcher": (NotImplementedError,
-                                lambda: CompiledDispatcher(
-                                    SocketDispatcher(), device="cpu")),
         "no_card": (RuntimeError, lambda: init_params(
             cfg_p, torch.Generator(), device="cuda")),
     }

@@ -226,11 +226,7 @@ def test_serve_run_records_every_iteration():
     assert run.iterations[-1].now == run.engines[0].now
 
 
-@pytest.mark.parametrize("flag", [["--fleet"],
-                                  ["--topology", "dual-125h"],
-                                  ["--trace", "t.json"],
-                                  ["--metrics", "m.prom"],
-                                  ["--flight-recorder", "f.json"]])
+@pytest.mark.parametrize("flag", [["--tuner-cache", "tuner.json"]])
 def test_unported_serve_modes_exit_with_a_message(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
         port_serve.main(["--device", "cpu", *flag])
