@@ -20,6 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    rotating over weight copies larger than the 50 MB L2) beside its bound,
    and, for ``int8_gemm`` at M = 32 and 64, beside ``torch._int_mm`` (the
    one PyTorch call that computes the product; it takes only M > 16).
+   Then the same checks at the zoo's new shapes (ZOO_SHAPES: the
+   granite-moe head with N % 8 = 3 and its K = 1024 attention, chatglm3's
+   N = 256 wk/wv, the K = 13696, 14336 and 24576 down projections), each
+   kernel's time at M = 4 beside its bound.
 3. The main paths end to end at full width: the port's serve path on
    llama2-7b (all 32 layers, bf16, compiled trunk and head, random weights
    from seed 0), 1 replica, 4 slots, 8 requests of 64 prompt tokens and 32
@@ -69,7 +73,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--fleet-admission``; every request finishes or is shed, and the
    card's routing, requeues, sheds and node ratios equal the same runs
    with ``--device cpu``.
-10. A JSON line with every kernel's numbers, then the device line.
+10. The zoo (phase 10): granite-8b (36 layers, 253 launches per trunk
+   call) and granite-moe-1b-a400m (24 layers of 32 experts, top-8, 97
+   launches per trunk call) at full width, bf16, seed 0, on the main
+   traffic: Q4 captured and uncaptured (the same tokens and timelines),
+   int8 captured (for the MoE uncaptured too, the same bits); each
+   captured decode step split and profiled, with its weight bytes (and
+   the MoE's expert bytes apart); logits against the plain path (int8
+   bitwise; Q4 within the tolerance, for the MoE only reported with the
+   share of top-k sets that part).  Then chatglm3-6b, starcoder2-15b,
+   olmo-1b, internvl2-26b (behind a 256-token patch-embedding stub),
+   musicgen-medium (on frame embeddings) and llama4-maverick (one period:
+   a dense and an MoE layer of 128 experts) at 2 layers of full width: a
+   prefill chunk and a decode step through the Q4 and int8 trunks against
+   their plain versions, launches counted exactly.  llama2-7b's weights
+   are freed first, and each model before the next.
+11. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
@@ -87,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -392,6 +412,95 @@ def int8_summary(rows) -> None:
         say(line)
 
 
+# (label, N, K) of the zoo's projections at shapes the llama2-7b path never
+# launches: the granite-moe head (N % 8 = 3) and attention (K = 1024),
+# chatglm3's wk/wv (N = 256), and three down projections (K = 13696,
+# 14336, 24576)
+ZOO_SHAPES = (("granite-moe head", 49155, 1024),
+              ("granite-moe wq/wo", 1024, 1024),
+              ("granite-moe wk/wv", 512, 1024),
+              ("chatglm3 wk/wv", 256, 4096),
+              ("chatglm3 down", 4096, 13696),
+              ("granite-8b down", 4096, 14336),
+              ("starcoder2 down", 6144, 24576))
+
+
+def zoo_kernels_vs_plain(q4, i8, quantize, q4_blocks) -> list:
+    """Phase 2 (the zoo's shapes): both Q4 kernels within the reference's
+    tolerances of their plain version and bitwise equal to each other at
+    M in {1, 4, 8}, f32 and bf16; ``int8_gemm`` bitwise equal to its plain
+    version at M in {1, 4, 8, 32}; and, at M = 4 (f32 x for Q4), each
+    kernel's time beside its bound and its plain version's time."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for label, n, k in ZOO_SHAPES:
+        bk = q4_blocks(k)[2]
+        w = torch.randn((n, k), generator=gen, device="cuda")
+        qw = quantize(w)
+        del w
+        worst = 0.0
+        for m, dt in [(m, dt) for dt in (torch.float32, torch.bfloat16)
+                      for m in (1, DECODE_M, 8)]:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+            a, b = q4.q4_matmul(x, qw, bk), q4.q4_matmul_db(x, qw, bk)
+            p = q4.q4_matmul_plain(x, qw, bk)
+            torch.cuda.synchronize()
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            err = (a.float() - p.float()).abs().max().item()
+            if not torch.allclose(a.float(), p.float(), rtol=tol,
+                                  atol=tol * k):
+                raise AssertionError(f"q4_matmul vs plain at {label} M={m} "
+                                     f"{dt}: max abs err {err}")
+            if not torch.equal(a, b):
+                raise AssertionError(f"q4_matmul_db != q4_matmul bitwise at "
+                                     f"{label} M={m} {dt}")
+            if dt == torch.float32:
+                worst = max(worst, err)
+        copies = max(2, math.ceil(2 * L2_BYTES / qw.nbytes))
+        banks = [type(qw)(qw.packed.clone(), qw.scales.clone())
+                 for _ in range(copies)]
+        x = torch.randn((DECODE_M, k), generator=gen, device="cuda")
+        sets = [(x, bank, bk) for bank in banks]
+        t_direct = device_ms(q4.q4_matmul, sets, 200)
+        t_db = device_ms(q4.q4_matmul_db, sets, 200)
+        t_plain = device_ms(q4.q4_matmul_plain, sets, 10)
+        bnd, by = bound_ms(DECODE_M, n, k)
+        del banks, qw
+        w8 = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.int8)
+        for m in (1, DECODE_M, 8, 32):
+            a8 = torch.randint(0, 256, (m, k), generator=gen, device="cuda",
+                               dtype=torch.int32).to(torch.uint8)
+            got, want = i8.int8_gemm(a8, w8), i8.int8_gemm_plain(a8, w8)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8_gemm != plain at {label} M={m}")
+            if m == DECODE_M:
+                i8_sets = [(a8, bank) for bank in [w8.clone() for _ in range(
+                    max(2, math.ceil(2 * L2_BYTES / w8.numel())))]]
+                t_i8 = device_ms(i8.int8_gemm, i8_sets, 200)
+                t_i8_plain = device_ms(i8.int8_gemm_plain, i8_sets, 10)
+                del i8_sets
+        b8, by8 = i8_bound_ms(DECODE_M, n, k)
+        del w8
+        rows.append({"shape": label, "n": n, "k": k, "m": DECODE_M, "bk": bk,
+                     "q4_max_abs_err": worst, "q4_matmul_ms": t_direct,
+                     "q4_matmul_db_ms": t_db, "q4_plain_ms": t_plain,
+                     "q4_bound_ms": bnd, "q4_bound_by": by,
+                     "int8_gemm_ms": t_i8, "int8_plain_ms": t_i8_plain,
+                     "int8_bound_ms": b8, "int8_bound_by": by8})
+        say(f"[smoke] zoo shape {label:18s} N={n:5d} K={k:5d}: q4 within "
+            f"tolerance (f32 err {worst:.3g}), db bitwise, int8 bitwise at "
+            f"M=1,4,8,32; M={DECODE_M}: q4_matmul {t_direct * 1e3:7.2f} us, "
+            f"q4_matmul_db {t_db * 1e3:7.2f} us, bound {bnd * 1e3:6.2f} us "
+            f"({by}), time/bound {t_direct / bnd:.2f} / {t_db / bnd:.2f}, "
+            f"plain {t_plain * 1e3:8.1f} us; int8_gemm {t_i8 * 1e3:7.2f} us,"
+            f" bound {b8 * 1e3:6.2f} us ({by8}), bound/kernel "
+            f"{b8 / t_i8:.2f}, plain {t_i8_plain * 1e3:8.1f} us")
+    torch.cuda.empty_cache()
+    return rows
+
+
 SERVE_ARGV = ["--arch", "llama2-7b", "--preset", "full", "--balanced-trunk",
               "--trunk-quant", "q4", "--replicas", "1", "--batch", "4",
               "--requests", "8", "--prompt-len", "64", "--steps", "32",
@@ -421,17 +530,20 @@ class Counts:
 
 
 def drive(counts, serve_mod, *, quant="q4", params=None, double_buffer=True,
-          cuda_graph=True, lanes=1, topology=None, obs_dir=None) -> dict:
-    """The port's serve path at full width (SERVE_ARGV with ``quant`` and
-    ``lanes`` prefill lanes), with every launch count set to 0 just before
-    the run and read just after.  ``cuda_graph=False`` runs its decode
+          cuda_graph=True, lanes=1, topology=None, obs_dir=None,
+          arch="llama2-7b") -> dict:
+    """The port's serve path at full width (SERVE_ARGV with ``arch``,
+    ``quant`` and ``lanes`` prefill lanes), with every launch count set to
+    0 just before the run and read just after.  ``cuda_graph=False`` runs its decode
     steps uncaptured; ``topology`` serves on that NUMA topology (its
     flattened machine is the clock); ``obs_dir`` turns on ``--trace``,
     ``--metrics`` and ``--flight-recorder`` into that directory, as
     ``main()`` of the serve module does.  ``trunk_calls`` counts its trunk
-    calls (one per prefill iteration and one per decode step), each 225
-    launches of the trunk's kernel."""
+    calls (one per prefill iteration and one per decode step), each
+    ``per_trunk_call(cfg)`` launches of the trunk's kernel (225 for
+    llama2-7b)."""
     argv = list(SERVE_ARGV)
+    argv[argv.index("--arch") + 1] = arch
     argv[argv.index("--trunk-quant") + 1] = quant
     if topology is not None:
         at = argv.index("--machine")
@@ -474,15 +586,16 @@ def drive(counts, serve_mod, *, quant="q4", params=None, double_buffer=True,
             "serve_wall_s": wall, "obs_lines": obs_lines}
 
 
-def expect_launches(main: dict, kernel: str) -> None:
-    """The run went through ``kernel`` and only through it: 225 launches
-    per trunk call (224 projections of 32 layers and the head), graph
-    replays included."""
+def expect_launches(main: dict, kernel: str,
+                    per_call: int = PER_TRUNK_CALL) -> None:
+    """The run went through ``kernel`` and only through it: ``per_call``
+    launches per trunk call (llama2-7b: 224 projections of 32 layers and
+    the head), graph replays included."""
     got = main["launches"]
-    want = PER_TRUNK_CALL * main["trunk_calls"]
+    want = per_call * main["trunk_calls"]
     if got[kernel] <= 0 or got[kernel] != want:
         raise AssertionError(f"{kernel} launched {got[kernel]} times, expected "
-                             f"{PER_TRUNK_CALL} x {main['trunk_calls']} "
+                             f"{per_call} x {main['trunk_calls']} "
                              f"trunk calls = {want}")
     others = {k: v for k, v in got.items() if k != kernel and v}
     if others:
@@ -1002,34 +1115,58 @@ def legacy_phase(serve_mod, params) -> dict:
 
 
 def main_path_vs_plain(run, forward, init_state, np_rng, label: str,
-                       tol: float) -> dict:
+                       tol: float, routing=None) -> dict:
     """Phase 5: one prefill chunk and one decode step at full width through
     the kernels and through their plain versions, from the same inputs.
     ``tol`` bounds max|diff| / max|logit|; 0 asks for bitwise equality."""
     engine = run.engines[0]
-    cfg, params, trunk = run.cfg, engine.params, engine.balanced_trunk
-    offsets = trunk.compiled_refresh()
     prompt = torch.as_tensor(
-        np_rng.integers(0, cfg.vocab_size, (1, 8), dtype=np.int32),
+        np_rng.integers(0, run.cfg.vocab_size, (1, 8), dtype=np.int32),
         device="cuda")
     nxt = torch.as_tensor(
-        np_rng.integers(0, cfg.vocab_size, (1, 1), dtype=np.int32),
+        np_rng.integers(0, run.cfg.vocab_size, (1, 1), dtype=np.int32),
         device="cuda")
-    out = {}
+    steps = (({"tokens": prompt}, 0, "avx_vnni", "last"),
+             ({"tokens": nxt}, 8, "membw", "all"))
+    return trunk_vs_plain(run.cfg, engine.params, engine.balanced_trunk,
+                          forward, init_state, steps, label, tol,
+                          routing=routing)
+
+
+def trunk_vs_plain(cfg, params, trunk, forward, init_state, steps,
+                   label: str, tol: float, *, max_seq: int = 16,
+                   counts=None, routing=None) -> dict:
+    """The forward ``steps`` (a prefill chunk and a decode step: forward's
+    input keywords, position, phase ISA, logits mode) on a fresh batch-1
+    cache, through ``trunk``'s kernels and through their plain versions.
+    ``tol`` bounds max|diff| / max|logit|; 0 asks for bitwise equality and
+    ``math.inf`` only reports.  With ``counts`` the kernel pass's launches
+    are read (set to 0 just before it); with ``routing`` (a
+    :class:`Routing`) each pass's MoE top-k choices are recorded."""
+    offsets = trunk.compiled_refresh()
+    out, res = {}, {}
     for plain in (False, True):
-        state = init_state(cfg, 1, 16, device="cuda")
+        state = init_state(cfg, 1, max_seq, device="cuda")
         logits = []
-        for tokens, pos, isa, mode in ((prompt, 0, "avx_vnni", "last"),
-                                       (nxt, 8, "membw", "all")):
-            fo = forward(cfg, params, tokens, state=state,
+        if counts is not None and not plain:
+            counts.reset()
+        if routing is not None:
+            routing.begin(plain)
+        for kw, pos, isa, mode in steps:
+            fo = forward(cfg, params, state=state,
                          pos_offset=torch.tensor(pos, device="cuda"),
                          logits_mode=mode, apply_head=False, trunk=trunk,
-                         trunk_isa=isa, trunk_offsets=offsets, plain=plain)
+                         trunk_isa=isa, trunk_offsets=offsets, plain=plain,
+                         **kw)
             state = fo.state
             logits.append(trunk.apply_head(fo.logits[:, -1, :], isa=isa,
                                            offsets=offsets, plain=plain))
+        if routing is not None:
+            routing.end()
+        if counts is not None and not plain:
+            torch.cuda.synchronize()
+            res["launches"] = counts.read()
         out[plain] = [lg.float() for lg in logits]
-    res = {}
     for i, phase in enumerate(("prefill", "decode")):
         a, b = out[False][i], out[True][i]
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
@@ -1458,6 +1595,256 @@ def fleet_phase(serve_mod, params) -> dict:
     return {"runs": out, "cpu": cpu}
 
 
+# ---------------------------------------------------------------- the zoo --
+# the attention families' other six, at 2 layers of full width (llama4:
+# one period, a dense layer and an MoE layer)
+ZOO_TWO_LAYERS = ("chatglm3-6b", "starcoder2-15b", "olmo-1b",
+                  "internvl2-26b", "musicgen-medium",
+                  "llama4-maverick-400b-a17b")
+
+
+def per_trunk_call(cfg) -> int:
+    """Kernel launches of one compiled trunk call: q/k/v/o of every layer,
+    the banked MLP projections of each dense layer (3 SwiGLU, 2 GeLU; an
+    MoE layer's experts run plain) and the head."""
+    mlp = 3 if cfg.mlp == "swiglu" else 2
+    return 1 + sum(4 + (mlp if ffn == "dense" else 0)
+                   for _, ffn in cfg.layer_plan())
+
+
+def expert_bytes(cfg, params) -> int:
+    """Bytes of the MoE layers' expert weights (routed and shared), which
+    the static (E, C, d) expert products read whole every trunk call."""
+    total = 0
+    for j, (_, ffn) in enumerate(cfg.period()):
+        if ffn == "moe":
+            total += sum(t.numel() * t.element_size() for name, t in
+                         params["period"][j]["ffn"].items()
+                         if name != "router")
+    return total
+
+
+class Routing:
+    """The experts each MoE layer chose (``aux["top_e"]``), per pass of
+    :func:`trunk_vs_plain`, recorded by wrapping ``moe.moe_fwd``."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.mod, self.orig = moe, moe.moe_fwd
+        self.runs, self.cur = {}, None
+
+        def recorded(*a, **k):
+            y, aux = self.orig(*a, **k)
+            if self.cur is not None:
+                self.runs[self.cur].append(aux["top_e"].clone())
+            return y, aux
+
+        moe.moe_fwd = recorded
+
+    def begin(self, key) -> None:
+        self.cur = key
+        self.runs[key] = []
+
+    def end(self) -> None:
+        self.cur = None
+
+    def remove(self) -> None:
+        self.mod.moe_fwd = self.orig
+
+    def parted(self, a, b) -> tuple:
+        """(token, layer) top-k sets that differ between passes a and b,
+        and how many there are."""
+        n = total = 0
+        for x, y in zip(self.runs[a], self.runs[b], strict=True):
+            xs, ys = torch.sort(x, -1).values, torch.sort(y, -1).values
+            n += int((xs != ys).any(-1).sum())
+            total += xs.shape[0]
+        return n, total
+
+
+def serve_zoo(counts, serve_mod, arch: str, forward, init_state, Request,
+              np_rng) -> dict:
+    """Phase 10: ``arch`` at full width, the main traffic.  Q4 captured and
+    uncaptured (the same tokens and timelines), int8 captured (and, for an
+    MoE model, uncaptured too), ``per_trunk_call(cfg)`` launches per trunk
+    call; each captured decode step split and profiled; logits against the
+    plain path, int8 bitwise and Q4 within Q4_VS_PLAIN_TOL — for an MoE
+    model the Q4 gap and the share of (token, layer) top-k sets that part
+    from the plain path are only reported (a 1e-2 drift of the sums flips
+    near-ties)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    per_call, moe = per_trunk_call(cfg), cfg.moe is not None
+    out = {"per_trunk_call": per_call}
+    t0 = time.perf_counter()
+    q4 = drive(counts, serve_mod, arch=arch)
+    run = q4["run"]
+    for line in serve_mod.report_lines(q4["args"], run):
+        say(line)
+    expect_launches(q4, "q4_matmul_db", per_call)
+    params = run.engines[0].params
+    ebytes = expert_bytes(cfg, params)
+    q4u = drive(counts, serve_mod, arch=arch, params=params,
+                cuda_graph=False)
+    expect_launches(q4u, "q4_matmul_db", per_call)
+    assert_same_run(run, q4u["run"], f"{arch} q4 uncaptured vs captured")
+    say(f"[smoke] {arch} q4: {q4['launches']['q4_matmul_db']} launches = "
+        f"{per_call} x {q4['trunk_calls']} trunk calls, captured and "
+        f"uncaptured alike, the same tokens and timelines (serve wall "
+        f"{q4['serve_wall_s']:.1f} s captured, {q4u['serve_wall_s']:.1f} s "
+        f"uncaptured; peak {q4['peak_bytes'] / 2**30:.2f} GiB)")
+    del q4u
+    out["q4"] = {"launches": q4["launches"]["q4_matmul_db"],
+                 "trunk_calls": q4["trunk_calls"],
+                 "serve_wall_s": q4["serve_wall_s"],
+                 "peak_bytes": q4["peak_bytes"],
+                 "decode": decode_wall(run, Request, np_rng, f"{arch} q4"),
+                 "profile": profile_decode(run, Request, np_rng,
+                                           f"{arch} q4")}
+    routing = Routing() if moe else None
+    try:
+        out["q4"]["vs_plain"] = main_path_vs_plain(
+            run, forward, init_state, np_rng, f"{arch} q4",
+            math.inf if moe else Q4_VS_PLAIN_TOL, routing=routing)
+        if moe:
+            n, total = routing.parted(False, True)
+            say(f"[smoke] {arch} q4 routing against the plain path: {n} of "
+                f"{total} (token, layer) top-{cfg.moe.top_k} sets part "
+                f"({n / total:.4f}); reported, not gated")
+            out["q4"]["routing_parted"] = [n, total]
+    finally:
+        if routing is not None:
+            routing.remove()
+    del run, q4
+    gc.collect()        # an engine and its captured step form a cycle
+    torch.cuda.empty_cache()
+
+    i8 = drive(counts, serve_mod, arch=arch, quant="int8", params=params)
+    run = i8["run"]
+    expect_launches(i8, "int8_gemm", per_call)
+    if moe:
+        i8u = drive(counts, serve_mod, arch=arch, quant="int8", params=params,
+                    cuda_graph=False)
+        expect_launches(i8u, "int8_gemm", per_call)
+        assert_same_run(run, i8u["run"], f"{arch} int8 uncaptured vs "
+                                         f"captured")
+        del i8u
+    say(f"[smoke] {arch} int8: {i8['launches']['int8_gemm']} launches = "
+        f"{per_call} x {i8['trunk_calls']} trunk calls"
+        + (", uncaptured the same tokens and timelines" if moe else "")
+        + f" (serve wall {i8['serve_wall_s']:.1f} s)")
+    out["int8"] = {"launches": i8["launches"]["int8_gemm"],
+                   "trunk_calls": i8["trunk_calls"],
+                   "serve_wall_s": i8["serve_wall_s"],
+                   "peak_bytes": i8["peak_bytes"],
+                   "decode": decode_wall(run, Request, np_rng,
+                                         f"{arch} int8"),
+                   "profile": profile_decode(run, Request, np_rng,
+                                             f"{arch} int8"),
+                   "vs_plain": main_path_vs_plain(
+                       run, forward, init_state, np_rng, f"{arch} int8",
+                       INT8_VS_PLAIN_TOL)}
+    if moe:
+        for quant in ("q4", "int8"):
+            d = out[quant]["decode"]
+            kernel_b = d["weight_bytes_per_step"]
+            step_s = d["decode_step_ms"] / 1e3
+            say(f"[smoke] {arch} {quant} decode step reads {kernel_b / 1e9:.3f}"
+                f" GB of kernel weights and {ebytes / 1e9:.3f} GB of expert "
+                f"weights (every expert, every step): "
+                f"{(kernel_b + ebytes) / step_s / HBM_BYTES_PER_S:.4f} of "
+                f"3.35 TB/s over the wall step; the experts alone bound the "
+                f"step at {ebytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    out["expert_bytes"] = ebytes
+    del run, i8, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[smoke] {arch} phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def zoo_two_layers(counts, arch: str, forward, init_state, np_rng) -> dict:
+    """Phase 10: ``arch`` at full width cut to 2 layers (llama4: one
+    period), bf16, seed 0: one prefill chunk and one decode step through
+    the compiled Q4 and int8 trunks against their plain versions — int8
+    bitwise, Q4 within Q4_VS_PLAIN_TOL (reported only for llama4, whose
+    MoE layer's routing flips at near-ties) — with exactly
+    ``per_trunk_call(cfg)`` launches per trunk call.  internvl2 prefills
+    behind a 256-token patch-embedding stub, musicgen on frame
+    embeddings."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import HybridKernelDispatcher
+    from repro_torch.models import BalancedTrunk, init_params
+    from repro_torch.models.modality import audio_frame_stub, vlm_prefix_stub
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    per_call = per_trunk_call(cfg)
+    if cfg.embed_input:
+        steps = (({"embeds": audio_frame_stub(cfg, 1, 8, gen,
+                                              device="cuda")},
+                  0, "avx_vnni", "last"),
+                 ({"embeds": audio_frame_stub(cfg, 1, 1, gen,
+                                              device="cuda")},
+                  8, "membw", "all"))
+    else:
+        toks = [torch.as_tensor(np_rng.integers(0, cfg.vocab_size, (1, n),
+                                                dtype=np.int32),
+                                device="cuda") for n in (8, 1)]
+        pre = ({"prefix_embeds": vlm_prefix_stub(cfg, 1, gen,
+                                                 device="cuda")}
+               if cfg.n_prefix else {})
+        steps = (({"tokens": toks[0], **pre}, 0, "avx_vnni", "last"),
+                 ({"tokens": toks[1]}, 8 + cfg.n_prefix, "membw", "all"))
+    out = {"per_trunk_call": per_call}
+    for quant, kernel in (("q4", "q4_matmul_db"), ("int8", "int8_gemm")):
+        trunk = BalancedTrunk.from_params(
+            cfg, params, HybridKernelDispatcher.virtual(
+                "ultra-125h", keep_stats=False), quant=quant, device="cuda")
+        tol = (INT8_VS_PLAIN_TOL if quant == "int8" else
+               math.inf if cfg.moe is not None else Q4_VS_PLAIN_TOL)
+        res = trunk_vs_plain(cfg, params, trunk, forward, init_state, steps,
+                             f"{arch} (2 layers) {quant}", tol,
+                             max_seq=cfg.n_prefix + 16, counts=counts)
+        want = {k: 0 for k in res["launches"]}
+        want[kernel] = 2 * per_call
+        if res["launches"] != want:
+            raise AssertionError(f"{arch} {quant}: launches "
+                                 f"{res['launches']}, expected {want}")
+        out[quant] = res
+        del trunk
+    say(f"[smoke] {arch} (2 layers, full width): {per_call} launches per "
+        f"trunk call on q4_matmul_db and on int8_gemm, as counted; int8 "
+        f"bitwise, q4 prefill/decode {out['q4']['prefill']:.3g} / "
+        f"{out['q4']['decode']:.3g} of max |logit| "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_phase(counts, serve_mod, forward, init_state, Request,
+              np_rng) -> dict:
+    """Phase 10, the zoo: granite-8b and granite-moe-1b-a400m served at full
+    width, then the other six attention-family archs at 2 layers."""
+    out = {}
+    for arch in ("granite-8b", "granite-moe-1b-a400m") + ZOO_TWO_LAYERS:
+        if arch in ZOO_TWO_LAYERS:
+            out[arch] = zoo_two_layers(counts, arch, forward, init_state,
+                                       np_rng)
+        else:
+            out[arch] = serve_zoo(counts, serve_mod, arch, forward,
+                                  init_state, Request, np_rng)
+        say(f"[smoke] device memory allocated after {arch} is freed: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
 def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
                    i8_launches: int, paths: dict) -> list:
     """One entry per kernel: ``launches`` from its own path's serving run,
@@ -1545,6 +1932,7 @@ def main(argv=None) -> int:
     head = header([q4, i8])
     phase2 = kernels_vs_plain(q4, quantize_q4_0, q4_blocks)
     p2i8 = int8_vs_plain(i8)
+    p2zoo = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks)
     if args.phases == "kernels":
         say(f"[smoke] kernels only: {time.perf_counter() - t_all:.1f} s on "
             f"{head['card']}")
@@ -1553,7 +1941,8 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(
                 {"card": head["card"], "build_s": head["build_s"],
                  "kernels": phase2["rows"],
-                 "int8": {"kernels": p2i8["rows"]}}, indent=1))
+                 "int8": {"kernels": p2i8["rows"]},
+                 "zoo_kernels": p2zoo}, indent=1))
         say(device_line())
         return 0
     phase3 = serve_full_width(counts, serve_mod)
@@ -1593,6 +1982,15 @@ def main(argv=None) -> int:
                 INT8_VS_PLAIN_TOL, forward, init_state, Request, np_rng)}
     topo_eager = topology_eager_vs_compiled(counts, params)
     fleet = fleet_phase(serve_mod, params)
+    reports = {"q4": phase3["run"].report.to_dict(),
+               "int8": p3i8["run"].report.to_dict()}
+    # llama2-7b's weights and engines go before the zoo's
+    del phase3["run"], p3i8["run"], params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[smoke] device memory allocated before the zoo: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    zoo = zoo_phase(counts, serve_mod, forward, init_state, Request, np_rng)
     paths = {"q4_matmul": {}, "q4_matmul_db": {}, "int8_gemm": {}}
     paths["q4_matmul_db"]["topology dual-125h (captured and uncaptured, "
                           "each)"] = topo["q4 dual-125h"]["launches"]
@@ -1602,6 +2000,13 @@ def main(argv=None) -> int:
         for name, n in got.items():
             if n:
                 paths[name][f"{label} (2 layers)"] = n
+    for arch, res in zoo.items():
+        served = "trunk_calls" in res["q4"]
+        label = (f"{arch} (full width, each serving run)" if served
+                 else f"{arch} (2 layers, prefill + decode)")
+        for name, quant in (("q4_matmul_db", "q4"), ("int8_gemm", "int8")):
+            n = res[quant]["launches"]
+            paths[name][label] = n if served else n[name]
     entries = kernel_entries(phase2, phase3["launches"], p2i8,
                              p3i8["launches"], paths)
     say(f"[smoke] total {time.perf_counter() - t_all:.1f} s on {head['card']}")
@@ -1613,7 +2018,7 @@ def main(argv=None) -> int:
                   "serve_wall_s": phase3["serve_wall_s"],
                   "uncaptured_serve_wall_s":
                       phase3["uncaptured_serve_wall_s"],
-                  "report": phase3["run"].report.to_dict(),
+                  "report": reports["q4"],
                   "decode": wall, "profile": prof, "vs_plain": phase5,
                   "int8": {"kernels": p2i8["rows"],
                            "launches": p3i8["launches"],
@@ -1622,13 +2027,13 @@ def main(argv=None) -> int:
                            "serve_wall_s": p3i8["serve_wall_s"],
                            "uncaptured_serve_wall_s":
                                p3i8["uncaptured_serve_wall_s"],
-                           "report": p3i8["run"].report.to_dict(),
+                           "report": reports["int8"],
                            "decode": wall_i8, "profile": prof_i8,
                            "vs_plain": p5i8},
                   "lanes": lanes, "balanced_head": bhead, "legacy": legacy,
                   "eager_vs_compiled": phase4, "topology": topo,
                   "topology_eager_vs_compiled": topo_eager["runs"],
-                  "fleet": fleet}
+                  "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

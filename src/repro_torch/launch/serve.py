@@ -2,7 +2,7 @@
 open-loop (seeded Poisson) traffic, phase-aware ratio learning, and dynamic
 replica routing — on the card by default.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
       --preset full --balanced-trunk --trunk-quant q4 --replicas 1
 
 Requests arrive open-loop and are routed to replicas by measured
@@ -35,9 +35,12 @@ front door.  ``--trace``, ``--metrics`` and ``--flight-recorder`` write a
 Perfetto trace, the run's metrics and the decision ring of the virtual
 clock.
 
-``--device cpu`` runs the same path with the kernels' plain torch version.
-The kernel-tuner cache is not ported yet: ``--tuner-cache`` exits with a
-message.
+``--arch`` takes every attention-family architecture of the zoo
+(granite-8b, the default, as in the reference); the embed-input ones
+(musicgen-medium) have no token traffic and are refused, and the recurrent
+mixers' ones (jamba, xlstm) are not ported yet.  ``--device cpu`` runs the
+same path with the kernels' plain torch version.  The kernel-tuner cache
+is not ported yet: ``--tuner-cache`` exits with a message.
 """
 
 from __future__ import annotations
@@ -96,7 +99,7 @@ def replica_slot_counts(batch: int, replicas: int) -> list:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--preset", choices=["tiny", "full"], default="tiny")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the model runs (cpu: the kernels' plain "
@@ -278,6 +281,8 @@ def setup(args, params: Optional[dict] = None, cfg=None) -> tuple:
     if cfg is None:
         cfg = (get_config(args.arch) if args.preset == "full"
                else reduced_config(args.arch))
+    if cfg.embed_input:
+        raise SystemExit("use examples/ for stub-frontend archs")
     if params is None:
         gen = torch.Generator(device=device).manual_seed(0)
         params = init_params(cfg, gen, device=device)

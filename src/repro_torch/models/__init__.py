@@ -1,5 +1,6 @@
-"""Models of the port: the dense transformer family, its balanced trunk,
-and the weight converter from the reference's pytrees."""
+"""Models of the port: the zoo's attention families (dense, MoE, and the
+backbones behind stub frontends), its balanced trunk, and the weight
+converter from the reference's pytrees."""
 
 from .transformer import (
     balanced_lm_head,

@@ -62,8 +62,10 @@ class BalancedTrunk:
 
     ``bank[(j, group, name)]`` holds one balanced linear per period repeat
     for period position ``j`` and parameter ``name`` of ``group`` ("attn"
-    mixer or dense "ffn").  ``head`` is the optional balanced LM head (kind
-    ``"head"``).  The weights live on ``device``.
+    mixer or dense "ffn").  MoE FFNs are not banked: their experts run
+    plain inside the forward, as in the reference.  ``head`` is the
+    optional balanced LM head (kind ``"head"``).  The weights live on
+    ``device``.
     """
 
     MODES = ("compiled", "eager")
@@ -120,7 +122,8 @@ class BalancedTrunk:
             if mixer == "attn":
                 groups.append(("attn", ("wq", "wk", "wv", "wo")))
             if ffn == "dense":
-                names = ("wi", "wg", "wo")  # SwiGLU
+                names = (("wi", "wg", "wo") if cfg.mlp == "swiglu"
+                         else ("wi", "wo"))
                 groups.append(("ffn", names))
             for group, names in groups:
                 stack = params["period"][j]["mixer" if group == "attn" else "ffn"]

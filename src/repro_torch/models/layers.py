@@ -1,6 +1,7 @@
-"""Shared building blocks of the dense family the port carries (RMSNorm,
-SwiGLU MLP, embeddings, interleaved rotary embeddings), and the balanced
-linears of the trunk (Q4_0, int8 and fp32).
+"""Shared building blocks of the attention families (RMSNorm, LayerNorm
+and the non-parametric LayerNorm; SwiGLU and GeLU MLPs; embeddings;
+interleaved rotary embeddings), and the balanced linears of the trunk
+(Q4_0, int8 and fp32).
 
 Parameters are plain nested dicts of tensors in the reference's layout
 (``(d_in, d_out)`` matrices for ``x @ w``); every ``init_*`` draws from an
@@ -25,16 +26,31 @@ from repro_torch.quant.q4 import QuantizedLinear, quantize_q4_0
 
 
 def _norm_init(cfg: ModelConfig, device) -> dict:
-    return {"w": torch.ones((cfg.d_model,), dtype=torch.float32,
-                            device=device)}
+    d = cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"w": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones((d,), dtype=torch.float32, device=device),
+                "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "nonparam_ln":  # olmo: no affine parameters
+        return {}
+    raise ValueError(cfg.norm)
 
 
 def norm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm computed in float32, returned in x's dtype."""
+    """``cfg.norm`` (RMSNorm, LayerNorm or the non-parametric LayerNorm)
+    computed in float32, returned in x's dtype."""
     xf = x.to(torch.float32)
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
-    return (xf * p["w"]).to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+        return (xf * p["w"]).to(x.dtype)
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, -1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    if cfg.norm == "layernorm":
+        xf = xf * p["w"] + p["b"]
+    return xf.to(x.dtype)
 
 
 def _dense(gen: torch.Generator, shape: tuple, dtype: torch.dtype, device,
@@ -53,22 +69,33 @@ def _dense(gen: torch.Generator, shape: tuple, dtype: torch.dtype, device,
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, device,
              n_rep: int = 1) -> dict:
-    """MLP weights stacked over ``n_rep`` period repeats."""
+    """MLP weights stacked over ``n_rep`` period repeats: SwiGLU (wi, wg,
+    wo) or GeLU (wi, wo)."""
     dt = cfg.cdtype
     d, f = cfg.d_model, cfg.d_ff
-    return {
-        "wi": _dense(gen, (n_rep, d, f), dt, device),
-        "wg": _dense(gen, (n_rep, d, f), dt, device),
-        "wo": _dense(gen, (n_rep, f, d), dt, device),
-    }
+    if cfg.mlp == "swiglu":
+        return {
+            "wi": _dense(gen, (n_rep, d, f), dt, device),
+            "wg": _dense(gen, (n_rep, d, f), dt, device),
+            "wo": _dense(gen, (n_rep, f, d), dt, device),
+        }
+    if cfg.mlp == "gelu":
+        return {"wi": _dense(gen, (n_rep, d, f), dt, device),
+                "wo": _dense(gen, (n_rep, f, d), dt, device)}
+    raise ValueError(cfg.mlp)
 
 
 def mlp_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
             proj: Optional[callable] = None) -> torch.Tensor:
-    """SwiGLU MLP.  ``proj(name, x, w)`` overrides each projection matmul
-    (balanced dispatch of the trunk); default is the plain ``x @ w``."""
+    """SwiGLU or GeLU MLP.  ``proj(name, x, w)`` overrides each projection
+    matmul (balanced dispatch of the trunk); default is the plain
+    ``x @ w``.  The GeLU is the tanh approximation, ``jax.nn.gelu``'s
+    default (``F.gelu``'s default is the exact erf form)."""
     mm = proj or (lambda name, x, w: x @ w)
-    h = F.silu(mm("wg", x, p["wg"])) * mm("wi", x, p["wi"])
+    if cfg.mlp == "swiglu":
+        h = F.silu(mm("wg", x, p["wg"])) * mm("wi", x, p["wi"])
+    else:  # gelu
+        h = F.gelu(mm("wi", x, p["wi"]), approximate="tanh")
     return mm("wo", h, p["wo"])
 
 

@@ -1,12 +1,14 @@
-"""Model trunk (dense family): attention mixers + dense FFNs over the
-per-architecture layer plan, in the reference's stacked-per-period layout.
+"""Model trunk of the attention families: attention mixers + dense or MoE
+FFNs over the per-architecture layer plan, in the reference's
+stacked-per-period layout.
 
 Parameters of each period position are stacked over repeats
 (``params["period"][j][...]`` has a leading ``n_periods`` axis) and states
 follow the same stacking, so weights and caches convert leaf by leaf to and
 from the reference's pytrees.  Where the reference scans one period body
 with ``lax.scan``, the port runs a plain loop over the repeats; a balanced
-trunk hooks its projections into the same loop.
+trunk hooks its projections into the same loop.  The recurrent mixers
+(mamba, mLSTM, sLSTM) are not ported yet: their architectures raise.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from . import attention as A
+from . import moe as M
 from .layers import (
     _norm_init,
     embed_fwd,
@@ -28,19 +31,31 @@ from .layers import (
     norm_fwd,
 )
 
+# the mixers of the zoo that are still to port, by family
+_RECURRENT = {"mamba": "SSM (models/ssm.py)",
+              "mlstm": "xLSTM (models/xlstm.py)",
+              "slstm": "xLSTM (models/xlstm.py)"}
 
-def _dense_period(cfg: ModelConfig) -> tuple:
+
+def _plan(cfg: ModelConfig) -> tuple:
+    """``cfg.period()``: (mixer, ffn) per period position, with ffn one of
+    "dense", "moe" or "none"; raises NotImplementedError for a recurrent
+    mixer (the next slice of the port)."""
     period = cfg.period()
-    for mixer, ffn in period:
-        if mixer != "attn" or ffn not in ("dense", "none"):
+    for mixer, _ in period:
+        if mixer in _RECURRENT:
             raise NotImplementedError(
-                f"{cfg.name}: layer ({mixer}, {ffn}) is not ported yet "
-                f"(the port carries the dense family)")
-    if cfg.norm != "rmsnorm" or cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.norm} / {cfg.mlp} is not ported yet (the port "
-            f"carries RMSNorm + SwiGLU)")
+                f"{cfg.name}: the {mixer} mixer of the {_RECURRENT[mixer]} "
+                f"family is not ported yet (the recurrent mixers are the "
+                f"next slice of the port)")
+        if mixer != "attn":
+            raise ValueError(mixer)
     return period
+
+
+def _stacked_norm(cfg: ModelConfig, device, n_rep: int) -> dict:
+    return {k: v[None].repeat(n_rep, *([1] * v.dim()))
+            for k, v in _norm_init(cfg, device).items()}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -51,16 +66,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     device = resolve_device(device)
     n_rep = cfg.n_periods
     stacked = []
-    for mixer, ffn in _dense_period(cfg):
+    for _, ffn in _plan(cfg):
         p: dict[str, Any] = {
-            "norm1": {k: v[None].repeat(n_rep, *([1] * v.dim()))
-                      for k, v in _norm_init(cfg, device).items()},
+            "norm1": _stacked_norm(cfg, device, n_rep),
             "mixer": A.init_attn(cfg, gen, device, n_rep),
         }
         if ffn != "none":
-            p["norm2"] = {k: v[None].repeat(n_rep, *([1] * v.dim()))
-                          for k, v in _norm_init(cfg, device).items()}
-            p["ffn"] = init_mlp(cfg, gen, device, n_rep)
+            p["norm2"] = _stacked_norm(cfg, device, n_rep)
+            p["ffn"] = (M.init_moe(cfg, gen, device, n_rep) if ffn == "moe"
+                        else init_mlp(cfg, gen, device, n_rep))
         stacked.append(p)
     return {
         "embed": init_embedding(cfg, gen, device),
@@ -81,7 +95,7 @@ def init_state(cfg: ModelConfig, batch: int, max_seq: int, *,
         k=torch.zeros(shape, dtype=cfg.cdtype, device=device),
         v=torch.zeros(shape, dtype=cfg.cdtype, device=device),
         idx=torch.zeros((n_rep,), dtype=torch.int32, device=device))
-        for _ in _dense_period(cfg)]
+        for _ in _plan(cfg)]
 
 
 def init_slot_state(cfg: ModelConfig, n_slots: int, max_seq: int, *,
@@ -110,7 +124,7 @@ def _tree_index(tree, r: int):
 
 
 def _norm(cfg, p, x, rowwise: bool) -> torch.Tensor:
-    """RMSNorm over x (B, S, d), one batch row at a time when ``rowwise``
+    """``cfg.norm`` over x (B, S, d), one batch row at a time when ``rowwise``
     (a reduction kernel on the card picks its order of sums by the number
     of rows it reduces)."""
     if rowwise and x.shape[0] > 1:
@@ -119,25 +133,34 @@ def _norm(cfg, p, x, rowwise: bool) -> torch.Tensor:
     return norm_fwd(cfg, p, x)
 
 
-def _apply_layer(cfg, ffn, p, x, positions, state, proj_attn=None,
-                 proj_ffn=None, rowwise=False):
+def _apply_layer(cfg, ffn, p, x, positions, state, capacity,
+                 proj_attn=None, proj_ffn=None, rowwise=False):
     h = _norm(cfg, p["norm1"], x, rowwise)
     mix, new_state = A.attn_fwd(cfg, p["mixer"], h, positions, state,
                                 proj=proj_attn, rowwise=rowwise)
     x = x + mix
+    aux = None
     if ffn != "none":
         h2 = _norm(cfg, p["norm2"], x, rowwise)
-        x = x + mlp_fwd(cfg, p["ffn"], h2, proj=proj_ffn)
-    return x, new_state
+        if ffn == "moe":
+            # the rows route together: they share the experts' capacity
+            y, aux = M.moe_fwd(cfg, p["ffn"], h2, capacity)
+        else:
+            y = mlp_fwd(cfg, p["ffn"], h2, proj=proj_ffn)
+        x = x + y
+    return x, new_state, aux
 
 
 def forward(
     cfg: ModelConfig,
     params: dict,
-    tokens: torch.Tensor,
+    tokens: Optional[torch.Tensor] = None,
     *,
+    embeds: Optional[torch.Tensor] = None,
+    prefix_embeds: Optional[torch.Tensor] = None,
     state: Optional[list] = None,
     pos_offset=0,
+    capacity: Optional[int] = None,
     logits_mode: str = "all",
     apply_head: bool = True,
     trunk=None,
@@ -146,7 +169,12 @@ def forward(
     plain: bool = False,
     rowwise: bool = False,
 ) -> ForwardOut:
-    """Trunk forward on tokens (B, S).
+    """Trunk forward on tokens (B, S) — or ``embeds`` (B, S, d) for
+    embed-input archs (the musicgen stub).  ``prefix_embeds`` (B, P, d) is
+    prepended (the internvl2 stub).  ``capacity`` overrides each MoE
+    layer's expert capacity (default: ``moe.default_capacity`` of the
+    call's B*S tokens).  ``aux`` holds the MoE layers' mean load-balance
+    loss and dropped share (zeros without MoE layers).
 
     ``state`` enables prefill/decode: its KV caches are written in place
     and returned with advanced indices.  ``pos_offset`` is a scalar or a
@@ -164,7 +192,13 @@ def forward(
     (see :func:`~repro_torch.models.attention.attn_fwd`); the projections
     already give each row the same sums whatever the batch.
     """
-    x = embed_fwd(cfg, params["embed"], tokens)
+    period = _plan(cfg)
+    if embeds is not None:
+        x = embeds.to(cfg.cdtype)
+    else:
+        x = embed_fwd(cfg, params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     offset = torch.as_tensor(pos_offset, device=x.device)
     steps = torch.arange(s, device=x.device)
@@ -174,9 +208,10 @@ def forward(
         positions = offset + steps[None, :]
     positions = torch.broadcast_to(positions, (b, s))
 
-    period = _dense_period(cfg)
     have_state = state is not None
     idx_out: list = [[] for _ in period]
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_periods):
         for j, (_, ffn) in enumerate(period):
             p_j = _tree_index(params["period"][j], r)
@@ -191,10 +226,14 @@ def forward(
                                             plain=plain)
                 proj_ffn = trunk.projector(j, r, "ffn", trunk_isa,
                                            offsets=trunk_offsets, plain=plain)
-            x, new_st = _apply_layer(cfg, ffn, p_j, x, positions, st_j,
-                                     proj_attn, proj_ffn, rowwise)
+            x, new_st, aux = _apply_layer(cfg, ffn, p_j, x, positions, st_j,
+                                          capacity, proj_attn, proj_ffn,
+                                          rowwise)
             if have_state:
                 idx_out[j].append(new_st.idx)
+            if aux is not None:
+                lb = lb + aux["lb_loss"]
+                dropped = dropped + aux["dropped"]
     # k/v were written in place into the stacked caches; only idx is new
     new_state = ([A.KVCache(k=state[j].k, v=state[j].v,
                             idx=torch.stack(idx_out[j]))
@@ -208,9 +247,9 @@ def forward(
         logits = logits_fwd(cfg, params["embed"], x)
     else:
         logits = x.to(torch.float32)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = max(1, sum(1 for _, f in cfg.layer_plan() if f == "moe"))
     return ForwardOut(logits=logits, state=new_state,
-                      aux={"lb_loss": zero, "dropped": zero})
+                      aux={"lb_loss": lb / n_moe, "dropped": dropped / n_moe})
 
 
 def balanced_lm_head(cfg: ModelConfig, params: dict, dispatcher, *,

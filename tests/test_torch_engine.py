@@ -482,8 +482,9 @@ def test_tokens_per_second_uses_real_request_count():
 
 
 # --------------------------------------------------------- the serve CLI --
-_TINY = ["--device", "cpu", "--preset", "tiny", "--requests", "3",
-         "--steps", "4", "--prompt-len", "6", "--batch", "2"]
+_TINY = ["--arch", "llama2-7b", "--device", "cpu", "--preset", "tiny",
+         "--requests", "3", "--steps", "4", "--prompt-len", "6", "--batch",
+         "2"]
 
 
 def test_cli_legacy_batch(capsys):

@@ -427,7 +427,8 @@ def test_serve_fleet_ratio_store_roundtrip(monkeypatch, tiny, tmp_path):
 
 
 def test_serve_fleet_cli_on_cpu(capsys):
-    rc = port_serve.main(["--device", "cpu", "--preset", "tiny", "--fleet",
+    rc = port_serve.main(["--arch", "llama2-7b", "--device", "cpu",
+                          "--preset", "tiny", "--fleet",
                           "--requests", "6", "--steps", "3",
                           "--prompt-len", "8"])
     out = capsys.readouterr().out

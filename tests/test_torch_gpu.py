@@ -281,8 +281,8 @@ _CAPTURED = {"q4-db": ("q4", True), "q4-direct": ("q4", False),
              "int8-2s-12900k": ("int8", True, "2s-12900k")}
 
 
-def _graph_engine(device, which, cuda_graph=True):
-    """A reduced llama2-7b engine (seeded weights on the card) with three
+def _graph_engine(device, which, cuda_graph=True, arch="llama2-7b"):
+    """A reduced ``arch`` engine (seeded weights on the card) with three
     queued requests; ``which`` names a key of _CAPTURED."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import BalancedTrunk, init_params
@@ -290,7 +290,7 @@ def _graph_engine(device, which, cuda_graph=True):
                                      HybridPhaseCost, poisson_requests)
     from repro_torch.topology import TopologyDispatcher
 
-    cfg = reduced_config("llama2-7b")
+    cfg = reduced_config(arch)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device=device)
     trunk, clock = None, "ultra-125h"
@@ -640,3 +640,95 @@ def test_gpu_fleet_engines_live_on_the_card(cuda):
                for e in engines for c in e.manager.state)
     assert all(e.captured for e in engines)
     assert any(e._graph is not None and e._graph.replays for e in engines)
+
+
+# ------------------------------------------------------------- the zoo --
+# (N, K) of the zoo's projections at shapes the llama2-7b path never
+# launches: the granite-moe head (N % 8 = 3) and attention (K = 1024),
+# chatglm3's wk/wv (N = 256), and the down projections of chatglm3,
+# granite-8b and starcoder2 (K = 13696, 14336, 24576)
+_ZOO_SHAPES = [(49155, 1024), (1024, 1024), (512, 1024), (256, 4096),
+               (4096, 13696), (4096, 14336), (6144, 24576)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", _ZOO_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_q4_kernels_at_zoo_shapes(cuda, m, n, k, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(n + k + m)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(
+        getattr(torch, dtype))
+    qw = quantize_q4_0(torch.randn((n, k), generator=gen, device=cuda))
+    bk = q4_blocks(k)[2]
+    a = K.q4_matmul(x, qw, bk)
+    b = K.q4_matmul_db(x, qw, bk)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(a.float(), K.q4_matmul_plain(x, qw, bk).float(),
+                               rtol=tol, atol=tol * k)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", _ZOO_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 8, 32])
+def test_gpu_int8_gemm_at_zoo_shapes(cuda, m, n, k):
+    a, w = _ints(m, n, k, cuda, seed=m + n + k)
+    got = I8.int8_gemm(a, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, I8.int8_gemm_plain(a, w))
+
+
+_MOE = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _MOE)
+@pytest.mark.parametrize("which", ["q4-db", "int8", "dense"])
+def test_gpu_moe_replayed_step_equals_uncaptured_step(cuda, arch, which):
+    """An MoE model's decode step captures (its routing syncs nothing with
+    the host), and its replay gives the uncaptured step's logits and
+    state bit for bit (the combine sums each token's experts in a fixed
+    order, with no atomics)."""
+    engine = _graph_engine(cuda, which, arch=arch)
+    _until_all_decoding(engine)
+    assert engine._graph is not None and engine._graph.graph is not None
+    saved = _state(engine)
+    logits, _ = engine._decode()
+    replayed = (logits.clone(), _state(engine))
+    _set_state(engine, saved)
+    man = engine.manager
+    logits, _ = engine._decode_body(
+        torch.as_tensor(man.last_token[:, None], device=cuda),
+        torch.as_tensor(man.pos, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(replayed[0], logits)
+    for got, want in zip(replayed[1], _state(engine)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _MOE)
+def test_gpu_moe_fwd_deterministic_and_equal_to_the_cpu(cuda, arch):
+    """The MoE layer on the card: the same bits on every call, the CPU's
+    routing (chosen experts, loads, drops) at a capacity that drops, and
+    its output within f32 tolerance of the CPU's."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import moe
+
+    cfg = reduced_config(arch)
+    p = moe.init_moe(cfg, torch.Generator().manual_seed(0), "cpu")
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(1))
+    y_cpu, aux_cpu = moe.moe_fwd(cfg, p, x, capacity=8)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    y1, aux1 = moe.moe_fwd(cfg, pc, x.to(cuda), capacity=8)
+    y2, _ = moe.moe_fwd(cfg, pc, x.to(cuda), capacity=8)
+    assert torch.equal(y1, y2)
+    assert torch.equal(aux1["top_e"].cpu(), aux_cpu["top_e"])
+    assert torch.equal(aux1["load"].cpu(), aux_cpu["load"])
+    assert float(aux1["dropped"]) == float(aux_cpu["dropped"]) > 0
+    torch.testing.assert_close(y1.cpu(), y_cpu, rtol=1e-4, atol=1e-4)

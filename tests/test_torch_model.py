@@ -301,7 +301,9 @@ def test_unported_paths_raise(model, case, monkeypatch):
         "topology": (ValueError, lambda: ContinuousBatchingEngine(
             cfg_p, params_p, max_slots=2, max_seq=16, topology="dual-125h",
             device="cpu")),
-        "arch": (KeyError, lambda: get_config("granite-8b")),
+        # the recurrent mixers are the next slice of the port
+        "arch": (NotImplementedError, lambda: init_params(
+            reduced_config("xlstm-1.3b"), torch.Generator(), device="cpu")),
         "no_card": (RuntimeError, lambda: init_params(
             cfg_p, torch.Generator(), device="cuda")),
     }
