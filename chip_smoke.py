@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DETAIL.json] [--phases all|kernels]
+    python3 chip_smoke.py [--out DETAIL.json] [--phases all|kernels|recurrent]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -22,8 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    one PyTorch call that computes the product; it takes only M > 16).
    Then the same checks at the zoo's new shapes (ZOO_SHAPES: the
    granite-moe head with N % 8 = 3 and its K = 1024 attention, chatglm3's
-   N = 256 wk/wv, the K = 13696, 14336 and 24576 down projections), each
-   kernel's time at M = 4 beside its bound.
+   N = 256 wk/wv, the K = 13696, 14336 and 24576 down projections) and
+   at the recurrent archs' (RECURRENT_SHAPES: xlstm-1.3b's K = 2048 head,
+   jamba-1.5-large's K = 8192 attention, d_ff 24576 FFN and 65536-row
+   head), each kernel's time at M = 4 beside its bound.
 3. The main paths end to end at full width: the port's serve path on
    llama2-7b (all 32 layers, bf16, compiled trunk and head, random weights
    from seed 0), 1 replica, 4 slots, 8 requests of 64 prompt tokens and 32
@@ -88,11 +90,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefill chunk and a decode step through the Q4 and int8 trunks against
    their plain versions, launches counted exactly.  llama2-7b's weights
    are freed first, and each model before the next.
-11. A JSON line with every kernel's numbers, then the device line.
+11. The recurrent archs (phase 11): xlstm-1.3b whole (48 blocks, d 2048,
+   4 heads, vocab 50304; mLSTM and sLSTM mixers in the captured graph, the
+   head the trunk's one launch per call) at bf16, seed 0, on the main
+   traffic: Q4 captured and uncaptured (the same tokens and timelines),
+   int8 captured, and int8 with 4 prefill lanes (the one-lane tokens);
+   each captured decode step split, profiled and set beside its three
+   byte counts (kernel weights, in-graph mixer weights, recurrent state
+   read and written); logits against the plain path (int8 bitwise, Q4
+   within the tolerance).  Then jamba-1.5-large cut to 4 layers of full
+   width — (mamba, dense), (mamba, moe), (mamba, dense), (attn, moe), the
+   fewest that hold every pair it has — a prefill chunk and a decode step
+   through the Q4 and int8 trunks against their plain versions (int8
+   bitwise, Q4 reported), 11 launches per trunk call, and the peak memory.
+12. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
-a change to any kernel.
+a change to any kernel.  ``--phases recurrent`` runs phase 1, phase 2 at
+the recurrent archs' shapes and phase 11.
 
 Every figure of the machine model that the serve lines print (TTFT,
 TPOT, ratio tables, socket splits, ``achieved_bw_frac``, GB/s of the
@@ -425,15 +441,28 @@ ZOO_SHAPES = (("granite-moe head", 49155, 1024),
               ("starcoder2 down", 6144, 24576))
 
 
-def zoo_kernels_vs_plain(q4, i8, quantize, q4_blocks) -> list:
-    """Phase 2 (the zoo's shapes): both Q4 kernels within the reference's
-    tolerances of their plain version and bitwise equal to each other at
-    M in {1, 4, 8}, f32 and bf16; ``int8_gemm`` bitwise equal to its plain
-    version at M in {1, 4, 8, 32}; and, at M = 4 (f32 x for Q4), each
-    kernel's time beside its bound and its plain version's time."""
+# (label, N, K) of the recurrent archs' projections through the kernels:
+# xlstm-1.3b's head (K = 2048), and jamba-1.5-large's attention (K = 8192,
+# GQA kv 8), dense FFN (d_ff 24576) and head (vocab 65536)
+RECURRENT_SHAPES = (("xlstm head", 50304, 2048),
+                    ("jamba wq/wo", 8192, 8192),
+                    ("jamba wk/wv", 1024, 8192),
+                    ("jamba up/gate", 24576, 8192),
+                    ("jamba down", 8192, 24576),
+                    ("jamba head", 65536, 8192))
+
+
+def zoo_kernels_vs_plain(q4, i8, quantize, q4_blocks,
+                         shapes=ZOO_SHAPES, what="zoo shape") -> list:
+    """Phase 2 (the zoo's shapes, or ``shapes``): both Q4 kernels within
+    the reference's tolerances of their plain version and bitwise equal to
+    each other at M in {1, 4, 8}, f32 and bf16; ``int8_gemm`` bitwise
+    equal to its plain version at M in {1, 4, 8, 32}; and, at M = 4 (f32 x
+    for Q4), each kernel's time beside its bound and its plain version's
+    time."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    for label, n, k in ZOO_SHAPES:
+    for label, n, k in shapes:
         bk = q4_blocks(k)[2]
         w = torch.randn((n, k), generator=gen, device="cuda")
         qw = quantize(w)
@@ -489,7 +518,7 @@ def zoo_kernels_vs_plain(q4, i8, quantize, q4_blocks) -> list:
                      "q4_bound_ms": bnd, "q4_bound_by": by,
                      "int8_gemm_ms": t_i8, "int8_plain_ms": t_i8_plain,
                      "int8_bound_ms": b8, "int8_bound_by": by8})
-        say(f"[smoke] zoo shape {label:18s} N={n:5d} K={k:5d}: q4 within "
+        say(f"[smoke] {what} {label:18s} N={n:5d} K={k:5d}: q4 within "
             f"tolerance (f32 err {worst:.3g}), db bitwise, int8 bitwise at "
             f"M=1,4,8,32; M={DECODE_M}: q4_matmul {t_direct * 1e3:7.2f} us, "
             f"q4_matmul_db {t_db * 1e3:7.2f} us, bound {bnd * 1e3:6.2f} us "
@@ -981,16 +1010,19 @@ def logit_gap(engine, init_state, a, b) -> float:
 
 
 def serve_lanes(counts, serve_mod, params, one_lane, init_state,
-                init_slot_state, np_rng, quant: str, kernel: str) -> dict:
+                init_slot_state, np_rng, quant: str, kernel: str,
+                arch: str = "llama2-7b",
+                per_call: int = PER_TRUNK_CALL) -> dict:
     """Multi-lane prefill at full width: the main traffic with LANES prefill
     lanes (chunks of 8, so the lanes reach the kernels at M = 32), captured
     decode.  Its greedy tokens must equal the one-lane run's: exactly for
     int8; for Q4, a request whose tokens part must part at a near-tie,
     within Q4_VS_PLAIN_TOL of max |logit|.  Then one prefill chunk timed
     at 1 and LANES lanes."""
-    main = drive(counts, serve_mod, quant=quant, params=params, lanes=LANES)
+    main = drive(counts, serve_mod, quant=quant, params=params, lanes=LANES,
+                 arch=arch)
     run = main["run"]
-    expect_launches(main, kernel)
+    expect_launches(main, kernel, per_call)
     at = sorted({it.prefill_tokens // 8 for it in run.iterations
                  if it.prefill_tokens})
     if LANES not in at:
@@ -1008,15 +1040,16 @@ def serve_lanes(counts, serve_mod, params, one_lane, init_state,
     timing = [prefill_chunk_ms(run.engines[0], init_state, init_slot_state,
                                np_rng, n) for n in (1, LANES)]
     one, many = timing
-    say(f"[smoke] {quant} {LANES}-lane prefill run: launches "
-        f"{main['launches'][kernel]} = {PER_TRUNK_CALL} x "
+    say(f"[smoke] {arch} {quant} {LANES}-lane prefill run: launches "
+        f"{main['launches'][kernel]} = {per_call} x "
         f"{main['trunk_calls']} trunk calls, lane counts {at}, "
         f"{sum(1 for it in run.iterations if it.prefill_tokens == 8 * LANES)}"
         f" iterations at M = {8 * LANES}; tokens equal one lane's: "
         f"{not gaps}" + (f" (logit gaps where they part: {gaps})"
                          if gaps else "")
         + f"; serve wall {main['serve_wall_s']:.1f} s")
-    say(f"[smoke] {quant} prefill chunk of 8 tokens per lane, uncaptured: "
+    say(f"[smoke] {arch} {quant} prefill chunk of 8 tokens per lane, "
+        f"uncaptured: "
         f"1 lane {one['host_ms']:.2f} ms ({one['events_ms']:.2f} by events), "
         f"{LANES} lanes {many['host_ms']:.2f} ms ({many['events_ms']:.2f}), "
         f"{one['tokens_per_s']:.0f} -> {many['tokens_per_s']:.0f} prompt "
@@ -1604,12 +1637,14 @@ ZOO_TWO_LAYERS = ("chatglm3-6b", "starcoder2-15b", "olmo-1b",
 
 
 def per_trunk_call(cfg) -> int:
-    """Kernel launches of one compiled trunk call: q/k/v/o of every layer,
-    the banked MLP projections of each dense layer (3 SwiGLU, 2 GeLU; an
-    MoE layer's experts run plain) and the head."""
+    """Kernel launches of one compiled trunk call: q/k/v/o of every
+    attention layer (a recurrent mixer runs plain), the banked MLP
+    projections of each dense layer (3 SwiGLU, 2 GeLU; an MoE layer's
+    experts run plain) and the head."""
     mlp = 3 if cfg.mlp == "swiglu" else 2
-    return 1 + sum(4 + (mlp if ffn == "dense" else 0)
-                   for _, ffn in cfg.layer_plan())
+    return 1 + sum((4 if mixer == "attn" else 0)
+                   + (mlp if ffn == "dense" else 0)
+                   for mixer, ffn in cfg.layer_plan())
 
 
 def expert_bytes(cfg, params) -> int:
@@ -1765,22 +1800,24 @@ def serve_zoo(counts, serve_mod, arch: str, forward, init_state, Request,
     return out
 
 
-def zoo_two_layers(counts, arch: str, forward, init_state, np_rng) -> dict:
-    """Phase 10: ``arch`` at full width cut to 2 layers (llama4: one
-    period), bf16, seed 0: one prefill chunk and one decode step through
-    the compiled Q4 and int8 trunks against their plain versions — int8
-    bitwise, Q4 within Q4_VS_PLAIN_TOL (reported only for llama4, whose
-    MoE layer's routing flips at near-ties) — with exactly
-    ``per_trunk_call(cfg)`` launches per trunk call.  internvl2 prefills
-    behind a 256-token patch-embedding stub, musicgen on frame
-    embeddings."""
+def zoo_two_layers(counts, arch: str, forward, init_state, np_rng,
+                   n_layers: int = 2) -> dict:
+    """Phase 10: ``arch`` at full width cut to ``n_layers`` layers (llama4
+    at 2: one period), bf16, seed 0: one prefill chunk and one decode step
+    through the compiled Q4 and int8 trunks against their plain versions —
+    int8 bitwise, Q4 within Q4_VS_PLAIN_TOL (reported only for an MoE
+    model, whose routing flips at near-ties) — with exactly
+    ``per_trunk_call(cfg)`` launches per trunk call, and the peak device
+    memory.  internvl2 prefills behind a 256-token patch-embedding stub,
+    musicgen on frame embeddings."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import HybridKernelDispatcher
     from repro_torch.models import BalancedTrunk, init_params
     from repro_torch.models.modality import audio_frame_stub, vlm_prefix_stub
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, gen, device="cuda")
     per_call = per_trunk_call(cfg)
@@ -1808,7 +1845,7 @@ def zoo_two_layers(counts, arch: str, forward, init_state, np_rng) -> dict:
         tol = (INT8_VS_PLAIN_TOL if quant == "int8" else
                math.inf if cfg.moe is not None else Q4_VS_PLAIN_TOL)
         res = trunk_vs_plain(cfg, params, trunk, forward, init_state, steps,
-                             f"{arch} (2 layers) {quant}", tol,
+                             f"{arch} ({n_layers} layers) {quant}", tol,
                              max_seq=cfg.n_prefix + 16, counts=counts)
         want = {k: 0 for k in res["launches"]}
         want[kernel] = 2 * per_call
@@ -1817,10 +1854,12 @@ def zoo_two_layers(counts, arch: str, forward, init_state, np_rng) -> dict:
                                  f"{res['launches']}, expected {want}")
         out[quant] = res
         del trunk
-    say(f"[smoke] {arch} (2 layers, full width): {per_call} launches per "
-        f"trunk call on q4_matmul_db and on int8_gemm, as counted; int8 "
-        f"bitwise, q4 prefill/decode {out['q4']['prefill']:.3g} / "
-        f"{out['q4']['decode']:.3g} of max |logit| "
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    say(f"[smoke] {arch} ({n_layers} layers, full width): {per_call} "
+        f"launches per trunk call on q4_matmul_db and on int8_gemm, as "
+        f"counted; int8 bitwise, q4 prefill/decode "
+        f"{out['q4']['prefill']:.3g} / {out['q4']['decode']:.3g} of max "
+        f"|logit|; peak {out['peak_bytes'] / 2**30:.2f} GiB "
         f"[{time.perf_counter() - t0:.1f} s]")
     del params
     gc.collect()
@@ -1842,6 +1881,136 @@ def zoo_phase(counts, serve_mod, forward, init_state, Request,
                                   init_state, Request, np_rng)
         say(f"[smoke] device memory allocated after {arch} is freed: "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
+# ---------------------------------------------------- the recurrent archs --
+RECURRENT_SERVED = "xlstm-1.3b"
+# jamba-1.5-large at the fewest layers that hold every (mixer, ffn) pair it
+# has: (mamba, dense), (mamba, moe), (mamba, dense), (attn, moe)
+RECURRENT_CUT = ("jamba-1.5-large-398b", 4)
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / list / tuple."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return sum(tensor_bytes(t) for t in tree)
+
+
+def step_bytes(arch: str, quant: str, decode: dict, mixer_b: int,
+               state_b: int) -> dict:
+    """The three byte counts of a recurrent arch's decode step — the
+    kernels' weights, the mixers' weights that the graph's plain ops read,
+    and the recurrent state read and written — beside the HBM bound of
+    their sum and the step's device span."""
+    kernel_b = decode["weight_bytes_per_step"]
+    total = kernel_b + mixer_b + state_b
+    bound = total / HBM_BYTES_PER_S * 1e3
+    say(f"[smoke] {arch} {quant} decode step moves {kernel_b / 1e9:.3f} GB "
+        f"of kernel weights (the head), {mixer_b / 1e9:.3f} GB of mixer "
+        f"weights in the graph and {state_b / 1e9:.3f} GB of recurrent "
+        f"state (read once and written once, 4 slots): {total / 1e9:.3f} "
+        f"GB, HBM bound {bound:.3f} ms; body {decode['body_ms']:.2f} ms by "
+        f"CUDA events ({bound / decode['body_ms']:.3f} of it), wall step "
+        f"{decode['decode_step_ms']:.2f} ms")
+    return {"kernel_weight_bytes": kernel_b, "mixer_weight_bytes": mixer_b,
+            "state_bytes": state_b, "bound_ms": bound}
+
+
+def serve_recurrent(counts, serve_mod, forward, init_state, init_slot_state,
+                    Request, np_rng) -> dict:
+    """Phase 11: xlstm-1.3b served whole (48 blocks, d 2048, bf16, seed 0)
+    on the main traffic: Q4 captured and uncaptured (the same tokens and
+    timelines), int8 captured, and int8 with LANES prefill lanes (the one
+    lane run's tokens); one launch per trunk call (the head); each
+    captured decode step split, profiled and set beside its three byte
+    counts; logits against the plain path (int8 bitwise, Q4 within
+    Q4_VS_PLAIN_TOL)."""
+    from repro_torch.configs import get_config
+
+    arch = RECURRENT_SERVED
+    cfg = get_config(arch)
+    per_call = per_trunk_call(cfg)
+    t0 = time.perf_counter()
+    q4 = drive(counts, serve_mod, arch=arch)
+    run = q4["run"]
+    for line in serve_mod.report_lines(q4["args"], run):
+        say(line)
+    expect_launches(q4, "q4_matmul_db", per_call)
+    params = run.engines[0].params
+    mixer_b = tensor_bytes(params["period"])
+    state_b = 2 * tensor_bytes(run.engines[0].manager.state)
+    q4u = drive(counts, serve_mod, arch=arch, params=params,
+                cuda_graph=False)
+    expect_launches(q4u, "q4_matmul_db", per_call)
+    assert_same_run(run, q4u["run"], f"{arch} q4 uncaptured vs captured")
+    say(f"[smoke] {arch} q4: {q4['launches']['q4_matmul_db']} launches = "
+        f"{per_call} x {q4['trunk_calls']} trunk calls, captured and "
+        f"uncaptured alike, the same tokens and timelines (serve wall "
+        f"{q4['serve_wall_s']:.1f} s captured, {q4u['serve_wall_s']:.1f} s "
+        f"uncaptured; peak {q4['peak_bytes'] / 2**30:.2f} GiB)")
+    out = {"per_trunk_call": per_call}
+    out["q4"] = {"launches": q4["launches"]["q4_matmul_db"],
+                 "trunk_calls": q4["trunk_calls"],
+                 "serve_wall_s": q4["serve_wall_s"],
+                 "uncaptured_serve_wall_s": q4u["serve_wall_s"],
+                 "peak_bytes": q4["peak_bytes"]}
+    del q4u, q4
+    for quant, kernel, tol in (("q4", "q4_matmul_db", Q4_VS_PLAIN_TOL),
+                               ("int8", "int8_gemm", INT8_VS_PLAIN_TOL)):
+        if quant == "int8":
+            i8 = drive(counts, serve_mod, arch=arch, quant="int8",
+                       params=params)
+            run = i8["run"]
+            expect_launches(i8, kernel, per_call)
+            say(f"[smoke] {arch} int8: {i8['launches'][kernel]} launches = "
+                f"{per_call} x {i8['trunk_calls']} trunk calls (serve wall "
+                f"{i8['serve_wall_s']:.1f} s)")
+            out["int8"] = {"launches": i8["launches"][kernel],
+                           "trunk_calls": i8["trunk_calls"],
+                           "serve_wall_s": i8["serve_wall_s"],
+                           "peak_bytes": i8["peak_bytes"]}
+            del i8
+        res = out[quant]
+        res["decode"] = decode_wall(run, Request, np_rng, f"{arch} {quant}")
+        res["profile"] = profile_decode(run, Request, np_rng,
+                                        f"{arch} {quant}")
+        res["bytes"] = step_bytes(arch, quant, res["decode"], mixer_b,
+                                  state_b)
+        res["vs_plain"] = main_path_vs_plain(run, forward, init_state,
+                                             np_rng, f"{arch} {quant}", tol)
+        if quant == "int8":
+            out["lanes"] = serve_lanes(counts, serve_mod, params, run,
+                                       init_state, init_slot_state, np_rng,
+                                       "int8", kernel, arch=arch,
+                                       per_call=per_call)
+        del run
+        gc.collect()        # an engine and its captured step form a cycle
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[smoke] {arch} phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def recurrent_phase(counts, serve_mod, forward, init_state, init_slot_state,
+                    Request, np_rng) -> dict:
+    """Phase 11, the recurrent archs: xlstm-1.3b served whole, then
+    jamba-1.5-large at 4 layers of full width against its plain path."""
+    t0 = time.perf_counter()
+    out = {RECURRENT_SERVED: serve_recurrent(
+        counts, serve_mod, forward, init_state, init_slot_state, Request,
+        np_rng)}
+    arch, n = RECURRENT_CUT
+    out[arch] = zoo_two_layers(counts, arch, forward, init_state, np_rng,
+                               n_layers=n)
+    say(f"[smoke] device memory allocated after {arch} is freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    say(f"[smoke] recurrent phase: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1906,11 +2075,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--phases", choices=("all", "kernels"), default="all",
+    ap.add_argument("--phases", choices=("all", "kernels", "recurrent"),
+                    default="all",
                     help="kernels: only the header and every kernel "
                          "against its plain version, with times (a quick "
-                         "check of a kernel change); all (default): every "
-                         "phase")
+                         "check of a kernel change); recurrent: the header, "
+                         "the kernels at the recurrent archs' shapes and "
+                         "phase 11; all (default): every phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1930,9 +2101,26 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     counts = Counts(q4, i8)
     head = header([q4, i8])
+    if args.phases == "recurrent":
+        p2rec = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks,
+                                     RECURRENT_SHAPES, "recurrent shape")
+        rec = recurrent_phase(counts, serve_mod, forward, init_state,
+                              init_slot_state, Request,
+                              np.random.default_rng(0))
+        say(f"[smoke] recurrent only: {time.perf_counter() - t_all:.1f} s "
+            f"on {head['card']}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": head["card"], "build_s": head["build_s"],
+                 "recurrent": rec, "recurrent_kernels": p2rec}, indent=1))
+        say(device_line())
+        return 0
     phase2 = kernels_vs_plain(q4, quantize_q4_0, q4_blocks)
     p2i8 = int8_vs_plain(i8)
     p2zoo = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks)
+    p2rec = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks,
+                                 RECURRENT_SHAPES, "recurrent shape")
     if args.phases == "kernels":
         say(f"[smoke] kernels only: {time.perf_counter() - t_all:.1f} s on "
             f"{head['card']}")
@@ -1942,7 +2130,8 @@ def main(argv=None) -> int:
                 {"card": head["card"], "build_s": head["build_s"],
                  "kernels": phase2["rows"],
                  "int8": {"kernels": p2i8["rows"]},
-                 "zoo_kernels": p2zoo}, indent=1))
+                 "zoo_kernels": p2zoo, "recurrent_kernels": p2rec},
+                indent=1))
         say(device_line())
         return 0
     phase3 = serve_full_width(counts, serve_mod)
@@ -1991,6 +2180,8 @@ def main(argv=None) -> int:
     say(f"[smoke] device memory allocated before the zoo: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     zoo = zoo_phase(counts, serve_mod, forward, init_state, Request, np_rng)
+    rec = recurrent_phase(counts, serve_mod, forward, init_state,
+                          init_slot_state, Request, np_rng)
     paths = {"q4_matmul": {}, "q4_matmul_db": {}, "int8_gemm": {}}
     paths["q4_matmul_db"]["topology dual-125h (captured and uncaptured, "
                           "each)"] = topo["q4 dual-125h"]["launches"]
@@ -2007,6 +2198,16 @@ def main(argv=None) -> int:
         for name, quant in (("q4_matmul_db", "q4"), ("int8_gemm", "int8")):
             n = res[quant]["launches"]
             paths[name][label] = n if served else n[name]
+    xl = rec[RECURRENT_SERVED]
+    for name, quant in (("q4_matmul_db", "q4"), ("int8_gemm", "int8")):
+        paths[name][f"{RECURRENT_SERVED} (whole, each serving run)"] = \
+            xl[quant]["launches"]
+    paths["int8_gemm"][f"{RECURRENT_SERVED} ({LANES} prefill lanes)"] = \
+        xl["lanes"]["launches"]
+    arch, n_cut = RECURRENT_CUT
+    for name, quant in (("q4_matmul_db", "q4"), ("int8_gemm", "int8")):
+        paths[name][f"{arch} ({n_cut} layers, prefill + decode)"] = \
+            rec[arch][quant]["launches"][name]
     entries = kernel_entries(phase2, phase3["launches"], p2i8,
                              p3i8["launches"], paths)
     say(f"[smoke] total {time.perf_counter() - t_all:.1f} s on {head['card']}")
@@ -2033,7 +2234,8 @@ def main(argv=None) -> int:
                   "lanes": lanes, "balanced_head": bhead, "legacy": legacy,
                   "eager_vs_compiled": phase4, "topology": topo,
                   "topology_eager_vs_compiled": topo_eager["runs"],
-                  "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo}
+                  "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
+                  "recurrent": rec, "recurrent_kernels": p2rec}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

@@ -35,10 +35,10 @@ front door.  ``--trace``, ``--metrics`` and ``--flight-recorder`` write a
 Perfetto trace, the run's metrics and the decision ring of the virtual
 clock.
 
-``--arch`` takes every attention-family architecture of the zoo
-(granite-8b, the default, as in the reference); the embed-input ones
-(musicgen-medium) have no token traffic and are refused, and the recurrent
-mixers' ones (jamba, xlstm) are not ported yet.  ``--device cpu`` runs the
+``--arch`` takes every architecture of the zoo (granite-8b, the default,
+as in the reference), the recurrent ones (jamba's mamba layers, xlstm's
+mLSTM and sLSTM blocks) included; the embed-input ones (musicgen-medium)
+have no token traffic and are refused.  ``--device cpu`` runs the
 same path with the kernels' plain torch version.  The kernel-tuner cache
 is not ported yet: ``--tuner-cache`` exits with a message.
 """

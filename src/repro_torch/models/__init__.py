@@ -1,6 +1,7 @@
-"""Models of the port: the zoo's attention families (dense, MoE, and the
-backbones behind stub frontends), its balanced trunk, and the weight
-converter from the reference's pytrees."""
+"""Models of the port: the whole zoo (attention families — dense, MoE and
+the backbones behind stub frontends — and the recurrent mixers of the
+hybrid and xLSTM families in :mod:`.ssm` and :mod:`.xlstm`), its balanced
+trunk, and the weight converter from the reference's pytrees."""
 
 from .transformer import (
     balanced_lm_head,
@@ -13,6 +14,7 @@ from .transformer import (
 from .layers import BalancedFp32Linear, BalancedLinear, BalancedQuantLinear
 from .balanced import BalancedTrunk
 from .convert import params_from_numpy
+from . import ssm, xlstm
 
 __all__ = [
     "BalancedTrunk",

@@ -1,14 +1,15 @@
-"""Model trunk of the attention families: attention mixers + dense or MoE
-FFNs over the per-architecture layer plan, in the reference's
+"""Model trunk: the zoo's mixers (attention, mamba, mLSTM, sLSTM) + dense
+or MoE FFNs over the per-architecture layer plan, in the reference's
 stacked-per-period layout.
 
 Parameters of each period position are stacked over repeats
 (``params["period"][j][...]`` has a leading ``n_periods`` axis) and states
-follow the same stacking, so weights and caches convert leaf by leaf to and
-from the reference's pytrees.  Where the reference scans one period body
-with ``lax.scan``, the port runs a plain loop over the repeats; a balanced
-trunk hooks its projections into the same loop.  The recurrent mixers
-(mamba, mLSTM, sLSTM) are not ported yet: their architectures raise.
+follow the same stacking (KV caches, :class:`~.ssm.MambaState`,
+:class:`~.xlstm.MLSTMState`, :class:`~.xlstm.SLSTMState`, each leaf
+(n_rep, B, ...)), so weights and states convert leaf by leaf to and from
+the reference's pytrees.  Where the reference scans one period body with
+``lax.scan``, the port runs a plain loop over the repeats; a balanced
+trunk hooks its projections into the same loop.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from . import attention as A
 from . import moe as M
+from . import ssm as S
+from . import xlstm as X
 from .layers import (
     _norm_init,
     embed_fwd,
@@ -31,24 +34,25 @@ from .layers import (
     norm_fwd,
 )
 
-# the mixers of the zoo that are still to port, by family
-_RECURRENT = {"mamba": "SSM (models/ssm.py)",
-              "mlstm": "xLSTM (models/xlstm.py)",
-              "slstm": "xLSTM (models/xlstm.py)"}
+MIXER_INIT = {
+    "attn": A.init_attn,
+    "mamba": S.init_mamba,
+    "mlstm": X.init_mlstm,
+    "slstm": X.init_slstm,
+}
+MIXER_FWD = {"mamba": S.mamba_fwd, "mlstm": X.mlstm_fwd,
+             "slstm": X.slstm_fwd}
+RECURRENT_STATE = {"mamba": S.init_mamba_state, "mlstm": X.init_mlstm_state,
+                   "slstm": X.init_slstm_state}
 
 
 def _plan(cfg: ModelConfig) -> tuple:
-    """``cfg.period()``: (mixer, ffn) per period position, with ffn one of
-    "dense", "moe" or "none"; raises NotImplementedError for a recurrent
-    mixer (the next slice of the port)."""
+    """``cfg.period()``: (mixer, ffn) per period position, with mixer one of
+    "attn", "mamba", "mlstm" or "slstm" and ffn one of "dense", "moe" or
+    "none"."""
     period = cfg.period()
     for mixer, _ in period:
-        if mixer in _RECURRENT:
-            raise NotImplementedError(
-                f"{cfg.name}: the {mixer} mixer of the {_RECURRENT[mixer]} "
-                f"family is not ported yet (the recurrent mixers are the "
-                f"next slice of the port)")
-        if mixer != "attn":
+        if mixer not in MIXER_INIT:
             raise ValueError(mixer)
     return period
 
@@ -66,10 +70,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     device = resolve_device(device)
     n_rep = cfg.n_periods
     stacked = []
-    for _, ffn in _plan(cfg):
+    for mixer, ffn in _plan(cfg):
         p: dict[str, Any] = {
             "norm1": _stacked_norm(cfg, device, n_rep),
-            "mixer": A.init_attn(cfg, gen, device, n_rep),
+            "mixer": MIXER_INIT[mixer](cfg, gen, device, n_rep),
         }
         if ffn != "none":
             p["norm2"] = _stacked_norm(cfg, device, n_rep)
@@ -86,26 +90,36 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 # --------------------------------------------------------------- states ---
 def init_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> list:
-    """Per-period-position stacked KV caches: k/v (n_rep, B, Hkv, S, hd),
-    idx (n_rep,) int32."""
+    """Per-period-position stacked decoding state: a KV cache per
+    attention position, k/v (n_rep, B, Hkv, S, hd) and idx (n_rep,) int32;
+    a zeroed mamba, mLSTM or sLSTM state per recurrent one, every leaf
+    (n_rep, B, ...)."""
     device = resolve_device(device)
     n_rep = cfg.n_periods
     shape = (n_rep, batch, cfg.n_kv_heads, max_seq, cfg.hd)
-    return [A.KVCache(
-        k=torch.zeros(shape, dtype=cfg.cdtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.cdtype, device=device),
-        idx=torch.zeros((n_rep,), dtype=torch.int32, device=device))
-        for _ in _plan(cfg)]
+    out = []
+    for mixer, _ in _plan(cfg):
+        if mixer == "attn":
+            out.append(A.KVCache(
+                k=torch.zeros(shape, dtype=cfg.cdtype, device=device),
+                v=torch.zeros(shape, dtype=cfg.cdtype, device=device),
+                idx=torch.zeros((n_rep,), dtype=torch.int32, device=device)))
+        else:
+            out.append(RECURRENT_STATE[mixer](cfg, batch, device=device,
+                                              n_rep=n_rep))
+    return out
 
 
 def init_slot_state(cfg: ModelConfig, n_slots: int, max_seq: int, *,
                     device="cuda") -> list:
     """Like :func:`init_state` but with per-row KV-cache indices, idx
     (n_rep, n_slots): each of the ``n_slots`` rows advances through its
-    cache independently (continuous batching)."""
+    cache independently (continuous batching).  Recurrent states already
+    carry a batch axis and stay as they are."""
     return [A.KVCache(k=c.k, v=c.v,
                       idx=torch.zeros((c.k.shape[0], n_slots),
                                       dtype=torch.int32, device=c.k.device))
+            if isinstance(c, A.KVCache) else c
             for c in init_state(cfg, n_slots, max_seq, device=device)]
 
 
@@ -133,11 +147,29 @@ def _norm(cfg, p, x, rowwise: bool) -> torch.Tensor:
     return norm_fwd(cfg, p, x)
 
 
-def _apply_layer(cfg, ffn, p, x, positions, state, capacity,
+def _mix(cfg, mixer, p, h, positions, state, proj_attn, rowwise):
+    """The layer's mixer on normed h (B, S, d).  A recurrent mixer runs one
+    batch row at a time when ``rowwise`` (its projections are products
+    whose order of sums depends on the number of rows), on views of the
+    state's rows, which it advances in place."""
+    if mixer == "attn":
+        return A.attn_fwd(cfg, p, h, positions, state, proj=proj_attn,
+                          rowwise=rowwise)
+    fwd = MIXER_FWD[mixer]
+    if not (rowwise and h.shape[0] > 1):
+        return fwd(cfg, p, h, state)
+    outs = [fwd(cfg, p, h[i:i + 1],
+                None if state is None else
+                type(state)(*(t[i:i + 1] for t in state)))[0]
+            for i in range(h.shape[0])]
+    return torch.cat(outs), state
+
+
+def _apply_layer(cfg, mixer, ffn, p, x, positions, state, capacity,
                  proj_attn=None, proj_ffn=None, rowwise=False):
     h = _norm(cfg, p["norm1"], x, rowwise)
-    mix, new_state = A.attn_fwd(cfg, p["mixer"], h, positions, state,
-                                proj=proj_attn, rowwise=rowwise)
+    mix, new_state = _mix(cfg, mixer, p["mixer"], h, positions, state,
+                          proj_attn, rowwise)
     x = x + mix
     aux = None
     if ffn != "none":
@@ -176,21 +208,22 @@ def forward(
     call's B*S tokens).  ``aux`` holds the MoE layers' mean load-balance
     loss and dropped share (zeros without MoE layers).
 
-    ``state`` enables prefill/decode: its KV caches are written in place
-    and returned with advanced indices.  ``pos_offset`` is a scalar or a
-    (B,) per-row offset (slot-batched serving).  ``apply_head=False`` skips
-    the LM-head matmul and returns the final-normed hidden states (f32) in
-    the ``logits`` slot.
+    ``state`` enables prefill/decode: its KV caches and recurrent states
+    are written in place and returned, the caches with advanced indices.
+    ``pos_offset`` is a scalar or a (B,) per-row offset (slot-batched
+    serving).  ``apply_head=False`` skips the LM-head matmul and returns
+    the final-normed hidden states (f32) in the ``logits`` slot.
 
     ``trunk`` (a :class:`~repro_torch.models.balanced.BalancedTrunk`)
     reroutes every banked projection through the compiled balanced
     lowering under the ``trunk_isa`` phase ISA, with ``trunk_offsets`` the
     device offset snapshot.  ``plain=True`` runs those projections through
     the kernels' plain torch version instead (the comparison path).
-    ``rowwise=True`` runs the attention and the norms one batch row at a
-    time, so that each row's result does not depend on the batch size
-    (see :func:`~repro_torch.models.attention.attn_fwd`); the projections
-    already give each row the same sums whatever the batch.
+    ``rowwise=True`` runs the attention, the recurrent mixers and the norms
+    one batch row at a time, so that each row's result does not depend on
+    the batch size (see :func:`~repro_torch.models.attention.attn_fwd`);
+    the trunk's projections already give each row the same sums whatever
+    the batch.
     """
     period = _plan(cfg)
     if embeds is not None:
@@ -213,12 +246,11 @@ def forward(
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_periods):
-        for j, (_, ffn) in enumerate(period):
+        for j, (mixer, ffn) in enumerate(period):
             p_j = _tree_index(params["period"][j], r)
             st_j = None
             if have_state:
-                st_j = A.KVCache(k=state[j].k[r], v=state[j].v[r],
-                                 idx=state[j].idx[r])
+                st_j = type(state[j])(*(t[r] for t in state[j]))
             proj_attn = proj_ffn = None
             if trunk is not None:
                 proj_attn = trunk.projector(j, r, "attn", trunk_isa,
@@ -226,18 +258,21 @@ def forward(
                                             plain=plain)
                 proj_ffn = trunk.projector(j, r, "ffn", trunk_isa,
                                            offsets=trunk_offsets, plain=plain)
-            x, new_st, aux = _apply_layer(cfg, ffn, p_j, x, positions, st_j,
-                                          capacity, proj_attn, proj_ffn,
+            x, new_st, aux = _apply_layer(cfg, mixer, ffn, p_j, x, positions,
+                                          st_j, capacity, proj_attn, proj_ffn,
                                           rowwise)
-            if have_state:
+            if have_state and mixer == "attn":
                 idx_out[j].append(new_st.idx)
             if aux is not None:
                 lb = lb + aux["lb_loss"]
                 dropped = dropped + aux["dropped"]
-    # k/v were written in place into the stacked caches; only idx is new
+    # k/v and the recurrent states were written in place into the stacked
+    # tensors; only the caches' idx is new
     new_state = ([A.KVCache(k=state[j].k, v=state[j].v,
                             idx=torch.stack(idx_out[j]))
-                  for j in range(len(period))] if have_state else None)
+                  if mixer == "attn" else state[j]
+                  for j, (mixer, _) in enumerate(period)]
+                 if have_state else None)
 
     if logits_mode == "last":
         # serving prefill consumes only the last position's logits

@@ -2,9 +2,9 @@
 trunk, plus the legacy static-batch engine.
 
 ``ContinuousBatchingEngine`` is the serving core: a persistent decode
-batch of ``max_slots`` rows (slot-based KV state, per-row cache indices),
-an iteration-level scheduler that interleaves (optionally chunked and
-multi-lane) prefill with running decode steps, and request
+batch of ``max_slots`` rows (slot-based KV and recurrent state, per-row
+cache indices), an iteration-level scheduler that interleaves (optionally
+chunked and multi-lane) prefill with running decode steps, and request
 admission/eviction with no full-batch barrier.  Time comes either from
 the wall clock or from a per-phase hybrid-CPU cost model
 (:class:`~repro_torch.serving.phases.HybridPhaseCost`), which also drives
@@ -56,21 +56,32 @@ __all__ = ["ContinuousBatchingEngine", "GenerationResult", "RoutedServer",
 def _stack_lane_states(states) -> list:
     """Stack per-lane batch-1 states into one B-row state.
 
-    Every cache leaf carries the period-repeat axis first and the batch
-    axis second, so K/V concatenate along axis 1 (a copy); ``idx`` goes
-    from (n_rep,) per lane to (n_rep, B), the per-row form ``attn_fwd``
-    already takes (each lane appends at its own offset)."""
-    return [KVCache(k=torch.cat([s[j].k for s in states], dim=1),
-                    v=torch.cat([s[j].v for s in states], dim=1),
-                    idx=torch.stack([s[j].idx for s in states], dim=1))
-            for j in range(len(states[0]))]
+    Every leaf carries the period-repeat axis first and the batch axis
+    second, so K/V and the recurrent states' leaves concatenate along
+    axis 1 (a copy); a KV cache's ``idx`` goes from (n_rep,) per lane to
+    (n_rep, B), the per-row form ``attn_fwd`` already takes (each lane
+    appends at its own offset)."""
+    out = []
+    for leaves in zip(*states):
+        first = leaves[0]
+        if isinstance(first, KVCache):
+            out.append(KVCache(k=torch.cat([c.k for c in leaves], dim=1),
+                               v=torch.cat([c.v for c in leaves], dim=1),
+                               idx=torch.stack([c.idx for c in leaves],
+                                               dim=1)))
+        else:
+            out.append(type(first)(*(torch.cat(ts, dim=1)
+                                     for ts in zip(*leaves))))
+    return out
 
 
 def _slice_lane_state(stacked, i: int) -> list:
     """Row ``i`` of a lane-stacked state, back in batch-1 form (views of
-    the stacked caches; ``idx`` back to (n_rep,)), so the row is adopt-
-    and restack-compatible with states from :func:`init_state`."""
+    the stacked tensors; a KV ``idx`` back to (n_rep,)), so the row is
+    adopt- and restack-compatible with states from :func:`init_state`."""
     return [KVCache(k=c.k[:, i:i + 1], v=c.v[:, i:i + 1], idx=c.idx[:, i])
+            if isinstance(c, KVCache) else
+            type(c)(*(t[:, i:i + 1] for t in c))
             for c in stacked]
 
 
@@ -187,9 +198,10 @@ class ContinuousBatchingEngine:
     it: the greedy pick and its copy to the host, the balanced head, the
     cost-tape replay and offset refresh, the virtual clock and every trace
     event.  The reference's step is functional; the port updates the slot
-    state in place: K/V rows by the attention's writes and the advanced
-    cache indices by a copy inside the step into the slot manager's own
-    ``idx`` tensors, so the graph always reads the live state.  Prefill
+    state in place: K/V rows by the attention's writes, the recurrent
+    states by the mixers' in-place updates, and the advanced cache indices
+    by a copy inside the step into the slot manager's own ``idx`` tensors,
+    so the graph always reads and writes the live state.  Prefill
     stays uncaptured: chunk lengths and lane counts vary.
     ``cuda_graph=False`` runs the same step uncaptured (the comparison
     path); an eager trunk is never captured.
@@ -313,12 +325,15 @@ class ContinuousBatchingEngine:
     def _decode_body(self, tok: torch.Tensor, pos: torch.Tensor):
         """The decode step over the persistent batch: the trunk call, then
         the advanced cache indices copied into the slot state's own
-        tensors.  Returns the logits (or hidden states) and the cost-tape
-        records.  This is what the CUDA graph captures."""
+        tensors (the mixers advance the K/V rows and the recurrent states
+        in those tensors themselves).  Returns the logits (or hidden
+        states) and the cost-tape records.  This is what the CUDA graph
+        captures."""
         man = self.manager
         logits, state, recs = self._run(tok, man.state, pos, DECODE)
         for big, new in zip(man.state, state):
-            big.idx.copy_(new.idx)
+            if isinstance(big, KVCache):
+                big.idx.copy_(new.idx)
         return logits, recs
 
     def _decode(self):

@@ -1,8 +1,9 @@
-"""Slot-based KV cache manager for the continuous-batching engine.
+"""Slot-based KV/recurrent state manager for the continuous-batching engine.
 
-The decode batch is *persistent*: one list of stacked KV caches with
-``n_slots`` batch rows (see :func:`repro_torch.models.init_slot_state` —
-cache indices are per row so every slot advances independently).  Requests
+The decode batch is *persistent*: one list of stacked states (KV caches,
+mamba and xLSTM states) with ``n_slots`` batch rows (see
+:func:`repro_torch.models.init_slot_state` — cache indices are per row so
+every slot advances independently).  Requests
 are prefilled on a detached batch-1 state and then *adopted* into a free
 slot; finished requests release their slot, which is immediately reusable.
 The decode step therefore always sees the same shapes.
@@ -21,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import init_slot_state
+from repro_torch.models.attention import KVCache
 
 __all__ = ["SlotCacheManager"]
 
@@ -72,22 +74,27 @@ class SlotCacheManager:
             raise ValueError(
                 f"context {n_context} leaves no room in max_seq {self.max_seq}")
         for big, small in zip(self.state, small_state):
-            big.k[:, slot].copy_(small.k[:, 0])
-            big.v[:, slot].copy_(small.v[:, 0])
-            big.idx[:, slot].copy_(small.idx)
+            # every leaf carries the batch axis second, but a KV cache's
+            # idx, which is (n_rep,) in the batch-1 state
+            for b, s in zip(big, small):
+                b[:, slot].copy_(s[:, 0] if s.dim() == b.dim() else s)
         self.pos[slot] = n_context
         self.last_token[slot] = last_token
 
     def release(self, slot: int) -> None:
-        """Return a slot to the free list (its cache rows become dead).  Its
-        cache index is zeroed: while the slot stays free its idx still
+        """Return a slot to the free list (its state rows become dead).  Its
+        KV cache index is zeroed: while the slot stays free its idx still
         drifts (+1 per decode step, like every row) — harmless, cache writes
         clamp at the buffer edge and the next adopt overwrites the row — but
-        the reset keeps the drift from accumulating across occupancies."""
+        the reset keeps the drift from accumulating across occupancies.  A
+        recurrent row is left as it is, as in the reference: the free row
+        keeps stepping on its last token, and the next adopt overwrites
+        it."""
         if slot in self._free:
             raise ValueError(f"slot {slot} is already free")
         for big in self.state:
-            big.idx[:, slot] = 0
+            if isinstance(big, KVCache):
+                big.idx[:, slot] = 0
         self.pos[slot] = 0
         self.last_token[slot] = 0
         self._free.append(slot)

@@ -319,15 +319,15 @@ def _until_all_decoding(engine):
 
 
 def _state(engine):
-    return [(c.k.clone(), c.v.clone(), c.idx.clone())
-            for c in engine.manager.state]
+    """A copy of every leaf of the slot state (KV caches and recurrent
+    states alike)."""
+    return [tuple(t.clone() for t in c) for c in engine.manager.state]
 
 
 def _set_state(engine, saved):
-    for c, (k, v, idx) in zip(engine.manager.state, saved):
-        c.k.copy_(k)
-        c.v.copy_(v)
-        c.idx.copy_(idx)
+    for c, leaves in zip(engine.manager.state, saved):
+        for t, value in zip(c, leaves):
+            t.copy_(value)
 
 
 @pytest.mark.gpu
@@ -732,3 +732,145 @@ def test_gpu_moe_fwd_deterministic_and_equal_to_the_cpu(cuda, arch):
     assert torch.equal(aux1["load"].cpu(), aux_cpu["load"])
     assert float(aux1["dropped"]) == float(aux_cpu["dropped"]) > 0
     torch.testing.assert_close(y1.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------- recurrent mixers --
+_RECURRENT = ("jamba-1.5-large-398b", "xlstm-1.3b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba", "mlstm", "slstm"])
+def test_gpu_recurrent_mixers_equal_the_cpu(cuda, name):
+    """Each recurrent mixer on the card against the CPU, from a carried
+    state (a prefill of 8 then a decode step), in f32 within 2e-5 of
+    scale (TF32 off), its state advanced in place in both; the same bits
+    on a second run."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import ssm, xlstm
+
+    arch = "jamba-1.5-large-398b" if name == "mamba" else "xlstm-1.3b"
+    cfg = reduced_config(arch)
+    mod = ssm if name == "mamba" else xlstm
+    init = getattr(mod, f"init_{name}")
+    fwd = getattr(mod, f"{name}_fwd")
+    init_state = getattr(mod, f"init_{name}_state")
+    p = {k: v[0] for k, v in
+         init(cfg, torch.Generator().manual_seed(0), "cpu").items()}
+    x = torch.randn((3, 9, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    outs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, run in (("cpu", 0), ("cuda", 0), ("cuda", 1)):
+            pd = {k: v.to(dev) for k, v in p.items()}
+            st = init_state(cfg, 3, device=dev)
+            y0, _ = fwd(cfg, pd, x[:, :8].to(dev), st)
+            y1, st2 = fwd(cfg, pd, x[:, 8:].to(dev), st)
+            assert all(a is b for a, b in zip(st, st2))
+            outs[(dev, run)] = [t.cpu() for t in (y0, y1, *st)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(outs[("cuda", 0)], outs[("cuda", 1)]):
+        assert torch.equal(a, b)
+    for got, want in zip(outs[("cuda", 0)], outs[("cpu", 0)]):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _RECURRENT)
+@pytest.mark.parametrize("which", ["q4-db", "int8"])
+def test_gpu_recurrent_replayed_step_equals_uncaptured_step(cuda, arch,
+                                                            which):
+    """The recurrent archs' decode step captures (no mixer syncs with the
+    host), and its replay gives the uncaptured step's logits and every
+    state leaf (KV caches, mamba, mLSTM and sLSTM states) bit for bit,
+    written into the slot state's own tensors."""
+    engine = _graph_engine(cuda, which, arch=arch)
+    _until_all_decoding(engine)
+    assert engine._graph is not None and engine._graph.graph is not None
+    ptrs = [t.data_ptr() for c in engine.manager.state for t in c]
+    saved = _state(engine)
+    logits, _ = engine._decode()
+    replayed = (logits.clone(), _state(engine))
+    assert any(not torch.equal(a, b) for got, was in zip(replayed[1], saved)
+               for a, b in zip(got, was))
+    _set_state(engine, saved)
+    man = engine.manager
+    logits, _ = engine._decode_body(
+        torch.as_tensor(man.last_token[:, None], device=cuda),
+        torch.as_tensor(man.pos, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(replayed[0], logits)
+    for got, want in zip(replayed[1], _state(engine)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert ptrs == [t.data_ptr() for c in engine.manager.state for t in c]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _RECURRENT)
+def test_gpu_recurrent_served_captured_equals_uncaptured(cuda, arch):
+    """Whole serving runs on the Q4 trunk, captured and uncaptured: the same
+    tokens for every request."""
+    tokens = []
+    for cuda_graph in (True, False):
+        engine = _graph_engine(cuda, "q4-db", cuda_graph=cuda_graph,
+                               arch=arch)
+        assert engine.captured == cuda_graph
+        engine.run_until_idle()
+        tokens.append([r.generated for r in engine.finished])
+    assert tokens[0] == tokens[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", _RECURRENT)
+def test_gpu_adopt_and_release_of_a_recurrent_row(cuda, arch):
+    """``adopt`` copies every leaf of a batch-1 state into its row and no
+    other; ``release`` zeroes only the KV cache index and leaves the
+    recurrent row as it is, and the next adopt overwrites it."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_state
+    from repro_torch.models.attention import KVCache
+    from repro_torch.serving.slots import SlotCacheManager
+
+    cfg = reduced_config(arch)
+    man = SlotCacheManager(cfg, 3, 16, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def filled():
+        small = init_state(cfg, 1, 16, device=cuda)
+        for c in small:
+            for t in c:
+                if t.is_floating_point():
+                    t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+                else:
+                    t.fill_(5)
+        return small
+
+    small = filled()
+    before = [tuple(t.clone() for t in c) for c in man.state]
+    slot = man.allocate()
+    man.adopt(slot, small, n_context=5, last_token=3)
+    for big, sm, was in zip(man.state, small, before):
+        for b, s, w in zip(big, sm, was):
+            want = s[:, 0] if s.dim() == b.dim() else s
+            assert torch.equal(b[:, slot], want)
+            others = [i for i in range(3) if i != slot]
+            assert torch.equal(b[:, others], w[:, others])
+    man.release(slot)
+    for big, sm in zip(man.state, small):
+        if isinstance(big, KVCache):
+            assert not big.idx[:, slot].any()
+            assert torch.equal(big.k[:, slot], sm.k[:, 0])
+        else:
+            for b, s in zip(big, sm):
+                assert torch.equal(b[:, slot], s[:, 0])
+    again = filled()
+    assert man.allocate() == slot
+    man.adopt(slot, again, n_context=2, last_token=1)
+    for big, sm in zip(man.state, again):
+        for b, s in zip(big, sm):
+            want = s[:, 0] if s.dim() == b.dim() else s
+            assert torch.equal(b[:, slot], want)

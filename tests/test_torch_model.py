@@ -287,8 +287,7 @@ def test_direct_kernel_lowering_equals_double_buffered(model):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("case", ["bridge", "topology", "arch",
-                                  "no_card"])
+@pytest.mark.parametrize("case", ["bridge", "topology", "no_card"])
 def test_unported_paths_raise(model, case, monkeypatch):
     cfg_p, params_p = model[1], model[3]
     disp = PortDisp.virtual("ultra-125h")
@@ -301,9 +300,6 @@ def test_unported_paths_raise(model, case, monkeypatch):
         "topology": (ValueError, lambda: ContinuousBatchingEngine(
             cfg_p, params_p, max_slots=2, max_seq=16, topology="dual-125h",
             device="cpu")),
-        # the recurrent mixers are the next slice of the port
-        "arch": (NotImplementedError, lambda: init_params(
-            reduced_config("xlstm-1.3b"), torch.Generator(), device="cpu")),
         "no_card": (RuntimeError, lambda: init_params(
             cfg_p, torch.Generator(), device="cuda")),
     }

@@ -11,8 +11,8 @@ the same numpy inputs fed to both packages.  As in
 their f32 sums (XLA's CPU kernels against PyTorch's): logits are held to
 2e-5 of their scale, the MoE output to rtol = atol = 1e-5, and routing
 (the chosen experts, the expert loads, the dropped share) exactly.  The
-recurrent mixers (mamba, mLSTM, sLSTM) are the next slice: their
-architectures raise.
+recurrent mixers (mamba, mLSTM, sLSTM) and their architectures (jamba,
+xlstm) are held in ``tests/test_torch_recurrent.py``.
 """
 
 import dataclasses
@@ -46,13 +46,15 @@ ALL_ARCHS = ref_configs.ARCHS + ref_configs.EXTRA_ARCHS
 RECURRENT = ("jamba-1.5-large-398b", "xlstm-1.3b")
 ATTENTION = tuple(a for a in ref_configs.ARCHS if a not in RECURRENT)
 MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b")
-# launches per trunk call of the full configs: q/k/v/o of every layer, the
-# banked MLP projections of each dense layer (3 SwiGLU, 2 GeLU; an MoE
-# layer's experts run plain), and the head
+# launches per trunk call of the full configs: q/k/v/o of every attention
+# layer, the banked MLP projections of each dense layer (3 SwiGLU, 2 GeLU;
+# an MoE layer's experts and the recurrent mixers run plain), and the head
 LAUNCHES = {"granite-8b": 253, "chatglm3-6b": 197, "starcoder2-15b": 241,
             "olmo-1b": 113, "granite-moe-1b-a400m": 97,
             "internvl2-26b": 337, "musicgen-medium": 289,
-            "llama4-maverick-400b-a17b": 48 // 2 * 11 + 1, "llama2-7b": 225}
+            "llama4-maverick-400b-a17b": 48 // 2 * 11 + 1, "llama2-7b": 225,
+            "jamba-1.5-large-398b": 145,
+            "xlstm-1.3b": 1}
 
 
 def _close(got, want, rel=REL_TOL):
@@ -143,12 +145,14 @@ def test_config_and_reduced_config_equal_the_references(arch):
 
 def test_launches_per_trunk_call_of_the_full_configs():
     """The kernel launches of one compiled trunk call at full size, from
-    the banking rule (q/k/v/o per layer, 3 or 2 banked MLP projections per
-    dense layer, none for an MoE layer, one head)."""
+    the banking rule (q/k/v/o per attention layer, none for a recurrent
+    mixer, 3 or 2 banked MLP projections per dense layer, none for an MoE
+    layer, one head)."""
     def rule(cfg):
         mlp = 3 if cfg.mlp == "swiglu" else 2
-        return 1 + sum(4 + (mlp if ffn == "dense" else 0)
-                       for _, ffn in cfg.layer_plan())
+        return 1 + sum((4 if mixer == "attn" else 0)
+                       + (mlp if ffn == "dense" else 0)
+                       for mixer, ffn in cfg.layer_plan())
 
     assert {a: rule(port_configs.get_config(a)) for a in LAUNCHES} \
         == LAUNCHES
@@ -471,15 +475,3 @@ def test_forward_with_compiled_trunk_equal(models, arch):
     per_call = 1 + sum(4 + (mlp if f == "dense" else 0)
                        for _, f in cfg_p.layer_plan())
     assert len(records) == per_call
-
-
-# ------------------------------------------------------ the next slice --
-@pytest.mark.parametrize("arch", RECURRENT)
-def test_recurrent_mixers_raise(arch):
-    cfg = port_configs.reduced_config(arch)
-    for call in (lambda: init_params(cfg, torch.Generator(), device="cpu"),
-                 lambda: init_state(cfg, 1, 8, device="cpu"),
-                 lambda: forward(cfg, {}, torch.zeros((1, 2),
-                                                      dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            call()
