@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DETAIL.json] [--phases all|kernels|recurrent]
+    python3 chip_smoke.py [--out DETAIL.json]
+                          [--phases all|kernels|recurrent|train]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -103,12 +104,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    fewest that hold every pair it has — a prefill chunk and a decode step
    through the Q4 and int8 trunks against their plain versions (int8
    bitwise, Q4 reported), 11 launches per trunk call, and the peak memory.
-12. A JSON line with every kernel's numbers, then the device line.
+12. Training (phase 12; no kernel is on its path, and its launches are
+   held at 0): (a) olmo-1b at full width and depth (16 layers, d 2048,
+   1.18 B parameters, bf16) through ``repro_torch.launch.train.main``, 4
+   steps of 8 x 2048 tokens in 2 microbatches with remat: every loss
+   finite, each wall step (torch.cuda.synchronize), tokens/s, peak memory,
+   6·N·D over the step time as a share of the card's bf16 peak, and one
+   step on fresh weights split by CUDA events into forward+backward and
+   the optimizer; (b) one train step of olmo-1b, granite-moe-1b-a400m and
+   xlstm-1.3b at 2 layers of full width in float32, on the card and on the
+   CPU from the same weights: loss, grad norm and updated parameters
+   within stated tolerances; (c) olmo-1b at 2 layers through ``main``: 4
+   steps straight against 2 steps and 2 resumed from their checkpoint,
+   under deterministic algorithms, bitwise, in a temporary directory
+   removed afterwards, with the bytes written.
+13. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
 a change to any kernel.  ``--phases recurrent`` runs phase 1, phase 2 at
-the recurrent archs' shapes and phase 11.
+the recurrent archs' shapes and phase 11; ``--phases train`` runs phases
+1 and 12.
 
 Every figure of the machine model that the serve lines print (TTFT,
 TPOT, ratio tables, socket splits, ``achieved_bw_frac``, GB/s of the
@@ -121,13 +137,18 @@ False or when the checkout's ``src/repro_torch`` is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -928,6 +949,19 @@ def profile_decode(run, Request, np_rng, label: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     engine.run_until_idle()
+    mode = "captured" if engine.captured else "uncaptured"
+    out = device_summary(prof, wall, f"{label} profile of 3 decode steps, "
+                                     f"{mode}")
+    return {"captured": engine.captured, **out}
+
+
+def device_summary(prof, wall: float, label: str, n_top: int = 8) -> dict:
+    """Device time by kernel name from a torch.profiler run of ``wall``
+    seconds.  Only the device's own events are summed (kernels, copies,
+    memsets): an operator's device time is its kernels' time, counted once
+    there.  The kernels of a graph replay appear under their own names."""
+    from torch.autograd import DeviceType
+
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -935,16 +969,15 @@ def profile_decode(run, Request, np_rng, label: str) -> dict:
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     avgs = [(name, us, n) for name, (us, n) in by_name.items()]
     total = sum(t for _, t, _ in avgs)  # microseconds
-    mode = "captured" if engine.captured else "uncaptured"
-    say(f"[smoke] {label} profile of 3 decode steps, {mode}: wall "
+    say(f"[smoke] {label}: wall "
         f"{wall * 1e3:.1f} ms, "
         f"device busy {total / 1e3:.1f} ms "
         f"({total / 1e6 / wall if wall else 0:.3f} of wall), "
         f"{sum(n for _, _, n in avgs)} device events")
-    top = sorted(avgs, key=lambda a: -a[1])[:8]
+    top = sorted(avgs, key=lambda a: -a[1])[:n_top]
     for key, t, count in top:
         say(f"[smoke]   {t / 1e3:8.2f} ms  x{count:5d}  {key[:90]}")
-    return {"captured": engine.captured, "profile_wall_ms": wall * 1e3,
+    return {"profile_wall_ms": wall * 1e3,
             "device_busy_ms": total / 1e3,
             "device_events": sum(n for _, _, n in avgs),
             "top": [{"kernel": k, "device_ms": t / 1e3, "count": c}
@@ -2014,6 +2047,282 @@ def recurrent_phase(counts, serve_mod, forward, init_state, init_slot_state,
     return out
 
 
+# ------------------------------------------------------------ training --
+H100_BF16_FLOP_PER_S = 989.4e12   # dense bf16 tensor-core peak (data sheet)
+TRAIN_ARGV = ["--arch", "olmo-1b", "--preset", "full", "--steps", "4",
+              "--global-batch", "8", "--microbatch", "4", "--seq-len", "2048",
+              "--log-every", "1"]
+TRAIN_LINE = re.compile(r"\[train\] step (\d+) loss=(\S+) lr=(\S+) "
+                        r"gnorm=(\S+) tok/s=(\d+)")
+# (b) one train step at 2 layers of full width, float32 (TF32 off), on the
+# card and on the CPU from the same weights and batch: 2 microbatches of
+# 1 x 128 tokens
+TRAIN_VS_CPU = ("olmo-1b", "granite-moe-1b-a400m", "xlstm-1.3b")
+TRAIN_VS_CPU_ARGV = dict(global_batch=2, microbatch=1, seq_len=128)
+TRAIN_LOSS_TOL = 1e-4     # relative, loss and grad norm: f32 sums in other
+TRAIN_GNORM_TOL = 1e-4    # orders over 2 layers and a 50k-row head
+TRAIN_PARTED_SHARE = 1e-5  # parameters parting by >= lr (an Adam sign flip)
+# (c) the resume check, olmo-1b at 2 layers of full width
+RESUME_ARGV = ["--arch", "olmo-1b", "--preset", "full", "--global-batch",
+               "4", "--microbatch", "2", "--seq-len", "256", "--log-every",
+               "1", "--ckpt-every", "100"]
+
+
+def run_train_main(train_mod, argv) -> tuple:
+    """``repro_torch.launch.train.main(argv)``, its printout echoed and
+    returned with the parsed step lines (step, loss, lr, gnorm, tok/s)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_mod.main(argv)
+    if rc != 0:
+        raise AssertionError(f"launch.train {argv} returned {rc}")
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        say(f"[smoke]   {line}")
+    steps = [tuple(float(v) for v in m.groups())
+             for m in map(TRAIN_LINE.fullmatch, lines) if m]
+    return lines, steps
+
+
+def train_full(counts, train_mod) -> dict:
+    """(a) olmo-1b at full width and depth, bf16, through
+    ``launch.train.main``: 4 steps of 8 x 2048 tokens in 2 microbatches,
+    remat on.  Every loss finite; the wall step (torch.cuda.synchronize,
+    as the driver times it) from its tok/s; then, on fresh weights, one
+    step split by CUDA events into forward+backward of the microbatches and
+    the optimizer; tokens/s, peak memory and 6·N·D over the step time
+    against the card's bf16 peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      init_opt_state, microbatch_grads)
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    _, steps = run_train_main(train_mod, TRAIN_ARGV)
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated()
+    wall_s = time.perf_counter() - t0
+    if len(steps) != 4 or not all(math.isfinite(s[1]) for s in steps):
+        raise AssertionError(f"olmo-1b training: steps {steps}")
+    if any(launches.values()):
+        raise AssertionError(f"no kernel is on the training path, yet "
+                             f"{launches} launched")
+    cfg = get_config("olmo-1b")
+    tokens = 8 * 2048
+    step_s = [tokens / s[4] for s in steps]
+    n_params = cfg.param_count()
+    model_flop = 6.0 * n_params * tokens
+
+    # one step on fresh weights, split by CUDA events
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=4)
+    opt = init_opt_state(params, opt_cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                  global_batch=8, microbatch=4))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in next(iter(data)).items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    ev[0].record()
+    loss, grads, _ = microbatch_grads(cfg, params, batch, remat=True)
+    ev[1].record()
+    params, opt, metrics = adamw_update(opt_cfg, params, grads, opt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    split_wall = time.perf_counter() - h0
+    fwd_bwd_ms = ev[0].elapsed_time(ev[1])
+    opt_ms = ev[1].elapsed_time(ev[2])
+    n_micro = batch["tokens"].shape[0]
+    if not math.isfinite(float(loss)):
+        raise AssertionError("split step: loss not finite")
+    del grads
+    # and one more step under the profiler: device time by kernel (the
+    # device's events only; the host's ~16,000 operator events would take
+    # longer to gather than the step)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        _, grads, _ = microbatch_grads(cfg, params, batch, remat=True)
+        adamw_update(opt_cfg, params, grads, opt)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - h0
+    profiled = device_summary(prof, prof_wall,
+                              "profile of one olmo-1b train step", n_top=12)
+    del params, opt, grads, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    out = {"losses": [s[1] for s in steps],
+           "grad_norms": [s[3] for s in steps],
+           "lr": [s[2] for s in steps], "step_s": step_s,
+           "steady_step_s": steady, "tokens_per_s": tokens / steady,
+           "peak_bytes": peak, "n_params": n_params,
+           "model_flop_per_step": model_flop,
+           "share_of_bf16_peak": model_flop / steady / H100_BF16_FLOP_PER_S,
+           "split": {"fwd_bwd_ms": fwd_bwd_ms,
+                     "fwd_bwd_per_microbatch_ms": fwd_bwd_ms / n_micro,
+                     "optimizer_ms": opt_ms, "host_wall_ms": split_wall * 1e3,
+                     "n_micro": n_micro},
+           "profile": profiled, "launches": launches, "wall_s": wall_s}
+    say(f"[smoke] olmo-1b training, full width and depth ({n_params / 1e9:.3f}"
+        f" B parameters, bf16, remat), 4 steps of 8 x 2048 tokens: losses "
+        f"{out['losses']}, wall steps {[f'{t * 1e3:.1f}' for t in step_s]} ms "
+        f"(torch.cuda.synchronize); steady {steady * 1e3:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB")
+    say(f"[smoke] one olmo-1b step split by CUDA events: forward+backward "
+        f"{fwd_bwd_ms:.1f} ms for {n_micro} microbatches of 4 x 2048 "
+        f"({fwd_bwd_ms / n_micro:.1f} ms each), optimizer {opt_ms:.1f} ms; "
+        f"host wall {split_wall * 1e3:.1f} ms")
+    say(f"[smoke] 6·N·D = {model_flop / 1e12:.1f} TFLOP a step over "
+        f"{steady * 1e3:.1f} ms: {out['share_of_bf16_peak']:.4f} of the "
+        f"card's bf16 peak ({H100_BF16_FLOP_PER_S / 1e12:.1f} TFLOP/s) "
+        f"[{time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+def train_vs_cpu(arch: str) -> dict:
+    """(b) One ``make_train_step`` step of ``arch`` at 2 layers of full
+    width in float32 (TF32 off), on the card and on the CPU from the same
+    weights (drawn on the CPU, seed 0) and batch: loss and grad norm within
+    TRAIN_LOSS_TOL / TRAIN_GNORM_TOL, the updated parameters parting by a
+    learning rate or more (an Adam sign flip parts them by 2·lr) in at
+    most TRAIN_PARTED_SHARE of the elements, and the largest other part in
+    units of lr reported."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=4)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kw = TRAIN_VS_CPU_ARGV
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, **kw))
+    batch = {k: torch.from_numpy(v) for k, v in next(iter(data)).items()}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t, dev=dev: t.to(dev), params)
+        step = make_train_step(cfg, opt_cfg, remat=True)
+        h0 = time.perf_counter()
+        new_p, _, m = step(p, init_opt_state(p, opt_cfg),
+                           {k: v.to(dev) for k, v in batch.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (float(m["loss"]), float(m["grad_norm"]), float(m["lr"]),
+                    [t.cpu() for t in leaves(new_p)],
+                    time.perf_counter() - h0, float(m["dropped"]))
+    (l_c, g_c, lr, p_c, s_c, d_c), (l_g, g_g, _, p_g, s_g, d_g) = \
+        res["cpu"], res["cuda"]
+    n = sum(t.numel() for t in p_c)
+    parted, worst = 0, 0.0
+    for a, b in zip(p_g, p_c):
+        d = (a - b).abs()
+        parted += int((d >= lr).sum())
+        worst = max(worst, float(torch.where(d >= lr, 0.0, d).max()) / lr)
+    out = {"loss": (l_g, l_c), "grad_norm": (g_g, g_c), "lr": lr,
+           "parted": parted, "elements": n, "worst_other_in_lr": worst,
+           "dropped": (d_g, d_c), "cpu_s": s_c, "card_s": s_g}
+    say(f"[smoke] {arch} (2 layers, full width, f32) one train step, card "
+        f"against CPU: loss {l_g:.7g} / {l_c:.7g}, grad norm {g_g:.7g} / "
+        f"{g_c:.7g}; {parted} of {n} parameters part by >= lr "
+        f"({lr:.3g}), the rest by at most {worst:.3g} lr"
+        + (f"; dropped {d_g:.4g} / {d_c:.4g}" if cfg.moe else "")
+        + f" [card {s_g:.2f} s, CPU {s_c:.2f} s, "
+          f"{time.perf_counter() - t0:.1f} s]")
+    if not (abs(l_g - l_c) <= TRAIN_LOSS_TOL * abs(l_c)
+            and abs(g_g - g_c) <= TRAIN_GNORM_TOL * abs(g_c)
+            and parted <= TRAIN_PARTED_SHARE * n):
+        raise AssertionError(f"{arch}: card and CPU train steps part: {out}")
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def train_resume(train_mod) -> dict:
+    """(c) olmo-1b at 2 layers of full width (bf16) through
+    ``launch.train.main``: 4 steps straight against 2 steps then 2 resumed
+    from the checkpoint, under torch.use_deterministic_algorithms (the
+    embedding's backward adds rows with atomics otherwise), in a temporary
+    directory removed afterwards: the same step lines but tok/s, and the
+    step-4 checkpoints equal byte for byte."""
+    t0 = time.perf_counter()
+    full = train_mod.get_config
+    train_mod.get_config = lambda arch: dataclasses.replace(full(arch),
+                                                            n_layers=2)
+    written = 0
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = {}
+            for name, steps, d in (("straight", 4, "a"), ("first", 2, "b"),
+                                   ("resumed", 4, "b")):
+                before = _dir_bytes(tmp)
+                lines, parsed = run_train_main(
+                    train_mod, RESUME_ARGV + ["--steps", str(steps),
+                                              "--ckpt-dir", f"{tmp}/{d}"])
+                written += _dir_bytes(tmp) - before
+                runs[name] = (lines, [s[:4] for s in parsed])
+            with np.load(f"{tmp}/a/step_00000004/arrays.npz") as a, \
+                    np.load(f"{tmp}/b/step_00000004/arrays.npz") as b:
+                same = sorted(a.files) == sorted(b.files) and all(
+                    a[k].tobytes() == b[k].tobytes() for k in a.files)
+                n_leaves = len(a.files)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        train_mod.get_config = full
+    resumed = runs["resumed"][0]
+    lines_equal = runs["straight"][1] == runs["first"][1] + runs["resumed"][1]
+    ok = (same and lines_equal
+          and resumed[0] == "[train] resumed from step 2"
+          and resumed[1].startswith("[train] warm-started"))
+    out = {"bitwise": same, "leaves": n_leaves, "bytes_written": written,
+           "steps": runs["straight"][1], "wall_s": time.perf_counter() - t0}
+    say(f"[smoke] olmo-1b (2 layers, full width) resume check under "
+        f"deterministic algorithms: 4 steps straight against 2 + 2 resumed: "
+        f"step lines equal {lines_equal}, the {n_leaves} leaves of the "
+        f"step-4 checkpoints equal byte for byte {same}; "
+        f"{written / 1e9:.2f} GB written to checkpoints "
+        f"(removed) [{out['wall_s']:.1f} s]")
+    if not ok:
+        raise AssertionError(f"resume check failed: {runs}")
+    return out
+
+
+def train_phase(counts) -> dict:
+    """Phase 12, training: (a) olmo-1b at full width and depth, (b) card
+    against CPU at 2 layers, (c) the resume check."""
+    from repro_torch.launch import train as train_mod
+
+    t0 = time.perf_counter()
+    say(f"[smoke] device memory allocated before training: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out = {"olmo-1b": train_full(counts, train_mod),
+           "vs_cpu": {arch: train_vs_cpu(arch) for arch in TRAIN_VS_CPU},
+           "resume": train_resume(train_mod)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[smoke] training phase: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
                    i8_launches: int, paths: dict) -> list:
     """One entry per kernel: ``launches`` from its own path's serving run,
@@ -2075,14 +2384,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--phases", choices=("all", "kernels", "recurrent"),
+    ap.add_argument("--phases",
+                    choices=("all", "kernels", "recurrent", "train"),
                     default="all",
                     help="kernels: only the header and every kernel "
                          "against its plain version, with times (a quick "
                          "check of a kernel change); recurrent: the header, "
                          "the kernels at the recurrent archs' shapes and "
-                         "phase 11; all (default): every phase")
+                         "phase 11; train: the header and phase 12; all "
+                         "(default): every phase")
     args = ap.parse_args(argv)
+    # the resume check runs under deterministic algorithms, whose cuBLAS
+    # calls need this set before CUDA initialises (on Hopper it is the
+    # workspace PyTorch takes by default)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
@@ -2101,6 +2416,17 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     counts = Counts(q4, i8)
     head = header([q4, i8])
+    if args.phases == "train":
+        trained = train_phase(counts)
+        say(f"[smoke] train only: {time.perf_counter() - t_all:.1f} s on "
+            f"{head['card']}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": head["card"], "build_s": head["build_s"],
+                 "train": trained}, indent=1))
+        say(device_line())
+        return 0
     if args.phases == "recurrent":
         p2rec = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks,
                                      RECURRENT_SHAPES, "recurrent shape")
@@ -2182,6 +2508,7 @@ def main(argv=None) -> int:
     zoo = zoo_phase(counts, serve_mod, forward, init_state, Request, np_rng)
     rec = recurrent_phase(counts, serve_mod, forward, init_state,
                           init_slot_state, Request, np_rng)
+    trained = train_phase(counts)
     paths = {"q4_matmul": {}, "q4_matmul_db": {}, "int8_gemm": {}}
     paths["q4_matmul_db"]["topology dual-125h (captured and uncaptured, "
                           "each)"] = topo["q4 dual-125h"]["launches"]
@@ -2235,7 +2562,8 @@ def main(argv=None) -> int:
                   "eager_vs_compiled": phase4, "topology": topo,
                   "topology_eager_vs_compiled": topo_eager["runs"],
                   "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
-                  "recurrent": rec, "recurrent_kernels": p2rec}
+                  "recurrent": rec, "recurrent_kernels": p2rec,
+                  "train": trained}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

@@ -10,10 +10,11 @@ from .transformer import (
     init_slot_state,
     forward,
     ForwardOut,
+    loss_fn,
 )
 from .layers import BalancedFp32Linear, BalancedLinear, BalancedQuantLinear
 from .balanced import BalancedTrunk
-from .convert import params_from_numpy
+from .convert import opt_state_from_numpy, params_from_numpy
 from . import ssm, xlstm
 
 __all__ = [
@@ -27,5 +28,7 @@ __all__ = [
     "init_slot_state",
     "forward",
     "ForwardOut",
+    "loss_fn",
     "params_from_numpy",
+    "opt_state_from_numpy",
 ]

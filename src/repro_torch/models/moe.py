@@ -13,7 +13,10 @@ layer runs inside a captured CUDA graph: the expert counts come from a
 ``scatter_add_`` into a zeroed (E,) vector (no ``bincount``, no boolean
 masks, no ``.item()``), and the combine is deterministic — each token's
 k contributions are gathered into (T, k, d) in ascending expert order and
-summed in that fixed order, never with atomics.
+summed in that fixed order, never with atomics.  Backward is deterministic
+too: the dispatch gathers the token rows by a permutation, so no two
+gradient rows meet in a scatter-add (in the combine only the drops'
+zero-weighted reads of one spare row do, adding exact zeros).
 
 Two of the paper's Eq.-3 mechanisms act on the experts:
 :func:`balanced_expert_assignment` computes an LPT expert->shard
@@ -85,10 +88,9 @@ def _dispatch(cfg: ModelConfig, xf: torch.Tensor, probs: torch.Tensor,
     flat_w = top_p.reshape(-1)
     n = t * k
     ar = torch.arange(n, device=xf.device)
-    tok_of = ar // k
 
     order = torch.argsort(flat_e, stable=True)
-    se, sw, st = flat_e[order], flat_w[order], tok_of[order]
+    se, sw = flat_e[order], flat_w[order]
     counts = torch.zeros((e,), dtype=torch.int64, device=xf.device)
     counts.scatter_add_(0, se, torch.ones_like(se))
     seg_start = torch.cumsum(counts, 0) - counts                # (E,)
@@ -101,7 +103,12 @@ def _dispatch(cfg: ModelConfig, xf: torch.Tensor, probs: torch.Tensor,
     # buffer holds exactly the reference's sums of zero-weighted drops.
     rows = torch.where(keep, dest, e * c)
     buf = torch.zeros((e * c + 1, d), dtype=xf.dtype, device=xf.device)
-    buf.index_copy_(0, rows, xf[st])
+    # each sorted assignment's token row (assignment i is token i // k's)
+    # taken as a permutation of the rows repeated in token order: no index
+    # repeats, so backward adds each token's k gradients by a sum over k,
+    # not by a scatter-add whose order changes from run to run
+    buf.index_copy_(0, rows, xf[:, None, :].expand(t, k, d)
+                    .reshape(n, d)[order])
     # where each token's assignments landed in the sorted order: sorted
     # ascending, that is ascending expert order (the sort is stable and a
     # token's k experts are distinct)

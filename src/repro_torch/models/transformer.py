@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -200,6 +201,7 @@ def forward(
     trunk_offsets=None,
     plain: bool = False,
     rowwise: bool = False,
+    remat: bool = False,
 ) -> ForwardOut:
     """Trunk forward on tokens (B, S) — or ``embeds`` (B, S, d) for
     embed-input archs (the musicgen stub).  ``prefix_embeds`` (B, P, d) is
@@ -223,7 +225,8 @@ def forward(
     one batch row at a time, so that each row's result does not depend on
     the batch size (see :func:`~repro_torch.models.attention.attn_fwd`);
     the trunk's projections already give each row the same sums whatever
-    the batch.
+    the batch.  ``remat=True`` (training: no state, no trunk) recomputes
+    each period repeat's activations in backward instead of keeping them.
     """
     period = _plan(cfg)
     if embeds is not None:
@@ -242,10 +245,12 @@ def forward(
     positions = torch.broadcast_to(positions, (b, s))
 
     have_state = state is not None
+    if remat and (have_state or trunk is not None):
+        raise ValueError("remat=True is for training: no state, no trunk")
     idx_out: list = [[] for _ in period]
-    lb = torch.zeros((), dtype=torch.float32, device=x.device)
-    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(cfg.n_periods):
+
+    def repeat(x, lb, dropped, r):
+        """Period repeat ``r``: every (mixer, ffn) position in turn."""
         for j, (mixer, ffn) in enumerate(period):
             p_j = _tree_index(params["period"][j], r)
             st_j = None
@@ -266,6 +271,19 @@ def forward(
             if aux is not None:
                 lb = lb + aux["lb_loss"]
                 dropped = dropped + aux["dropped"]
+        return x, lb, dropped
+
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.n_periods):
+        if remat:
+            # the reference's jax.checkpoint of the period body: keep only
+            # the repeat's inputs, recompute its activations in backward
+            x, lb, dropped = checkpoint(repeat, x, lb, dropped, r,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
+        else:
+            x, lb, dropped = repeat(x, lb, dropped, r)
     # k/v and the recurrent states were written in place into the stacked
     # tensors; only the caches' idx is new
     new_state = ([A.KVCache(k=state[j].k, v=state[j].v,
@@ -302,3 +320,43 @@ def balanced_lm_head(cfg: ModelConfig, params: dict, dispatcher, *,
          else params["embed"]["out"].T)  # (vocab, d_model) = (N, K)
     return BalancedQuantLinear.from_dense(w.to(resolve_device(device)),
                                           dispatcher)
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: dict,
+    batch: dict,
+    *,
+    lb_coef: float = 0.01,
+    capacity: Optional[int] = None,
+    remat: bool = False,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (+ MoE load-balance loss).
+
+    batch: {"tokens": (B,S), "labels": (B,S) with -100 = ignore} and
+    optionally "embeds"/"prefix_embeds" for stub-frontend archs.  The
+    log-softmax is taken over float32 logits, as the reference's.
+    """
+    out = forward(
+        cfg,
+        params,
+        batch.get("tokens"),
+        embeds=batch.get("embeds"),
+        prefix_embeds=batch.get("prefix_embeds"),
+        capacity=capacity,
+        remat=remat,
+    )
+    labels = batch["labels"]
+    logits = out.logits
+    if logits.shape[1] != labels.shape[1]:  # prefix positions carry no loss
+        logits = logits[:, logits.shape[1] - labels.shape[1]:, :]
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = torch.where(valid, nll, 0.0).sum() / denom
+    total = ce + lb_coef * out.aux["lb_loss"]
+    metrics = {"loss": total, "ce": ce, "lb": out.aux["lb_loss"],
+               "dropped": out.aux["dropped"]}
+    return total, metrics

@@ -22,7 +22,9 @@ the mLSTM matrix memory is decayed and updated in its own tensor (a
 no copy back), the small leaves are copied into theirs, and the returned
 state is the same storage, so a captured step keeps its addresses.  Nothing syncs with the host and
 every shape is fixed by the input's, so both mixers run inside a captured
-CUDA graph.
+CUDA graph.  Without a state (training, and any stateless forward) the
+mLSTM memory starts from zeros and advances out of place, so autograd can
+differentiate through the chunks.
 """
 
 from __future__ import annotations
@@ -105,13 +107,16 @@ def _headwise_rms(h: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return h * torch.rsqrt(torch.mean(h * h, -1, keepdim=True) + eps)
 
 
-def _mlstm_chunk(q, k, v, ig, fg, state):
+def _mlstm_chunk(q, k, v, ig, fg, state, inplace: bool = True):
     """One chunk of the chunkwise-parallel mLSTM.
 
     q, k: (B, H, L, dk) (q pre-scaled); v: (B, H, L, dv); ig, fg: (B, H, L)
     f32.  state: (c (B, H, dv, dk) contiguous, n (B, H, dk), m (B, H)).
     Returns h (B, H, L, dv) and the end-of-chunk state: the state's own
-    tensors, advanced in place."""
+    tensors, advanced in place — or, with ``inplace=False``, new tensors
+    holding the same values, with the chunk's inputs left as they are, so
+    autograd can differentiate through the chunks (it saves ``c0`` and
+    ``n0`` for the products above)."""
     c0, n0, m0 = state
     b = torch.cumsum(fg, dim=-1)                      # (B,H,L) log forget cum
     # D_ts = ig_s + b_t - b_s  (s <= t)
@@ -142,6 +147,12 @@ def _mlstm_chunk(q, k, v, ig, fg, state):
     n_upd = torch.einsum("bhl,bhld->bhd", wk_end, k)
     bsz, nh, dv, dk = c0.shape
     wv = (wk_end[..., None] * v).transpose(2, 3)      # (B,H,dv,L)
+    if not inplace:
+        c = torch.baddbmm((c0 * decay[..., None, None]).view(bsz * nh, dv, dk),
+                          wv.reshape(bsz * nh, dv, l),
+                          k.reshape(bsz * nh, l, dk))
+        return h, (c.view(bsz, nh, dv, dk), n0 * decay[..., None] + n_upd,
+                   m_end)
     c0.mul_(decay[..., None, None])
     c0.view(bsz * nh, dv, dk).baddbmm_(wv.reshape(bsz * nh, dv, l),
                                        k.reshape(bsz * nh, l, dk))
@@ -199,7 +210,9 @@ def mlstm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
               state: Optional[MLSTMState] = None) -> tuple:
     """x: (B, S, d) -> (out, state).  With ``state`` the memory continues
     from it and is advanced in place (the returned state is the same
-    storage); without, it starts from zeros and returns None."""
+    storage); without, it starts from zeros, is advanced out of place (the
+    training path: autograd differentiates through the chunks) and None is
+    returned."""
     di, nh, dv, dk = mlstm_dims(cfg)
     b_sz, s_len, _ = x.shape
 
@@ -231,7 +244,8 @@ def mlstm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
     for c0 in range(0, s_len, chunk):
         sl = slice(c0, c0 + chunk)
         h_c, st = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                               ig[:, :, sl], fg[:, :, sl], st)
+                               ig[:, :, sl], fg[:, :, sl], st,
+                               inplace=state is not None)
         hs.append(h_c)
     h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=2)
 
