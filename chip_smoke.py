@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DETAIL.json]
-                          [--phases all|kernels|recurrent|train]
+                          [--phases all|kernels|recurrent|train|shard]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -118,13 +118,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    steps straight against 2 steps and 2 resumed from their checkpoint,
    under deterministic algorithms, bitwise, in a temporary directory
    removed afterwards, with the bytes written.
-13. A JSON line with every kernel's numbers, then the device line.
+13. Sharding (phase 13; no kernel is on its path, and its launches are
+   held at 0): an NCCL process group of world size 1 through the port's
+   ``init_cluster`` (a file rendezvous under build/) and the (1, 1)
+   ``("data", "model")`` mesh on the card.  (a) One train step of olmo-1b
+   at 2 layers of full width in float32 on the mesh (DTensor parameters,
+   optimizer state and batch by ``param_shardings``, ``opt_shardings`` and
+   ``batch_shardings``, gradients constrained to ``grad_shardings``)
+   against the plain step from the same weights and batch, with phase
+   12's tolerances, and whether the two are bitwise equal; (b) olmo-1b
+   whole (bf16, remat, 8 x 2048 tokens in 2 microbatches), 3 steps on the
+   mesh: the steady wall step, the host's time to return from each step,
+   tokens/s, peak memory and the ratio to phase 12's plain steady step;
+   (c) the plain 2-layer step's checkpoint restored with ``shardings=``
+   onto the mesh, bitwise equal to the plain restore.
+14. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
 a change to any kernel.  ``--phases recurrent`` runs phase 1, phase 2 at
 the recurrent archs' shapes and phase 11; ``--phases train`` runs phases
-1 and 12.
+1 and 12; ``--phases shard`` runs phases 1 and 13, (b) then timing 3
+plain steps of its own for the ratio.
 
 Every figure of the machine model that the serve lines print (TTFT,
 TPOT, ratio tables, socket splits, ``achieved_bw_frac``, GB/s of the
@@ -2323,6 +2338,246 @@ def train_phase(counts) -> dict:
     return out
 
 
+# ------------------------------------------------------------ sharding --
+SHARD_STEPS = 3           # (b) sharded olmo-1b steps, the first one warm-up
+SHARD_RDV = Path(__file__).resolve().parent / "build" / "shard_rendezvous"
+
+
+def shard_setup():
+    """An NCCL process group of world size 1 through the port's
+    ``init_cluster`` (a file rendezvous under build/, no network), and the
+    (1, 1) ``("data", "model")`` mesh on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.cluster import init_cluster
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    SHARD_RDV.parent.mkdir(parents=True, exist_ok=True)
+    SHARD_RDV.unlink(missing_ok=True)
+    if not init_cluster(f"file://{SHARD_RDV}", 1, 0, device="cuda"):
+        raise AssertionError("init_cluster did not join a process group")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+    mesh = make_debug_mesh(1, 1, device="cuda")
+    if mesh.device_type != "cuda":
+        raise AssertionError(f"mesh on {mesh.device_type}")
+    return mesh
+
+
+def _shard_tree(mesh, params, opt):
+    """Parameters and optimizer state as DTensors by their shardings, and
+    the parameters' shardings (the step's ``grad_shardings``)."""
+    from repro_torch.sharding import distribute, opt_shardings, param_shardings
+
+    ps = param_shardings(mesh, params)
+    tree = distribute({"params": params, "opt": opt},
+                      {"params": ps, "opt": opt_shardings(mesh, opt, ps)})
+    return tree["params"], tree["opt"], ps
+
+
+def _shard_batch(mesh, batch):
+    from repro_torch.sharding import batch_shardings, distribute
+
+    return distribute(batch, batch_shardings(mesh, batch, batch_dim=1))
+
+
+def shard_vs_plain(mesh, tmp: str) -> dict:
+    """(a) One ``make_train_step`` step of olmo-1b at 2 layers of full width
+    in float32 (TF32 off), plain and on the (1, 1) mesh (DTensor
+    parameters, optimizer state and batch, ``grad_shardings``) from the
+    same weights and batch: loss and grad norm within TRAIN_LOSS_TOL /
+    TRAIN_GNORM_TOL, parameters parting by >= lr in at most
+    TRAIN_PARTED_SHARE of the elements, and whether the two are bitwise
+    equal.  (c) The plain step's parameters and state, saved, restored with
+    ``shardings=`` onto the mesh: bitwise the plain restore."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.sharding import (activation_sharding, opt_shardings,
+                                      param_shardings)
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=2,
+                              dtype="float32")
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=4)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  **TRAIN_VS_CPU_ARGV))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in next(iter(data)).items()}
+    step = make_train_step(cfg, opt_cfg, remat=True)
+    plain_p, plain_o, pm = step(params, init_opt_state(params, opt_cfg),
+                                batch)
+    dparams, dopt, ps = _shard_tree(mesh, params,
+                                    init_opt_state(params, opt_cfg))
+    sstep = make_train_step(cfg, opt_cfg, remat=True, grad_shardings=ps)
+    with activation_sharding(mesh):
+        shard_p, shard_o, sm = sstep(dparams, dopt, _shard_batch(mesh, batch))
+    torch.cuda.synchronize()
+    if not all(isinstance(t, DTensor) and t.device_mesh is mesh
+               for t in leaves(shard_p) + leaves(shard_o)):
+        raise AssertionError("the sharded step left the mesh")
+    lr = float(pm["lr"])
+    n = parted = 0
+    bitwise = (float(pm["loss"]) == float(sm["loss"])
+               and float(pm["grad_norm"]) == float(sm["grad_norm"]))
+    worst = 0.0
+    for a, b in zip(leaves(shard_p), leaves(plain_p)):
+        a = a.full_tensor()
+        d = (a - b).abs()
+        n += b.numel()
+        parted += int((d >= lr).sum())
+        worst = max(worst, float(d.max()) / lr)
+        bitwise = bitwise and torch.equal(a, b)
+    l_p, l_s = float(pm["loss"]), float(sm["loss"])
+    g_p, g_s = float(pm["grad_norm"]), float(sm["grad_norm"])
+    out = {"loss": (l_s, l_p), "grad_norm": (g_s, g_p), "lr": lr,
+           "parted": parted, "elements": n, "worst_in_lr": worst,
+           "bitwise": bitwise}
+    say(f"[smoke] olmo-1b (2 layers, full width, f32) one train step on the "
+        f"(1, 1) mesh against the plain step: loss {l_s:.7g} / {l_p:.7g}, "
+        f"grad norm {g_s:.7g} / {g_p:.7g}; {parted} of {n} parameters part "
+        f"by >= lr ({lr:.3g}), the most by {worst:.3g} lr; bitwise equal "
+        f"{bitwise}")
+    if not (abs(l_s - l_p) <= TRAIN_LOSS_TOL * abs(l_p)
+            and abs(g_s - g_p) <= TRAIN_GNORM_TOL * abs(g_p)
+            and parted <= TRAIN_PARTED_SHARE * n):
+        raise AssertionError(f"sharded and plain steps part: {out}")
+
+    # (c) restore onto the mesh
+    tree = {"params": plain_p, "opt": plain_o}
+    save(tmp, 1, tree)
+    plain_r, _ = restore(tmp, 1, tree, device="cuda")
+    ps = param_shardings(mesh, plain_p)
+    onto, _ = restore(tmp, 1, tree, device="cuda", shardings={
+        "params": ps, "opt": opt_shardings(mesh, plain_o, ps)})
+    same = all(isinstance(a, DTensor) and a.device_mesh is mesh
+               and a.dtype == b.dtype and torch.equal(a.full_tensor(), b)
+               for a, b in zip(leaves(onto), leaves(plain_r)))
+    out["restore_bitwise"] = same
+    out["restore_leaves"] = len(leaves(onto))
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[smoke] the plain step's checkpoint restored onto the (1, 1) mesh "
+        f"with shardings=: {out['restore_leaves']} DTensor leaves bitwise "
+        f"equal to the plain restore {same} [{out['wall_s']:.1f} s]")
+    if not same:
+        raise AssertionError("restore onto the mesh is not bitwise")
+    return out
+
+
+def _olmo_steps(counts, mesh, n_steps: int) -> dict:
+    """``n_steps`` train steps of olmo-1b whole (bf16, remat, 2 microbatches
+    of 4 x 2048 tokens) from fresh weights, plain or on ``mesh``: each
+    step's host time to return and wall time (torch.cuda.synchronize),
+    peak memory, and the kernels' launches (held at 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.sharding import activation_sharding
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("olmo-1b")
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=4)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    opt = init_opt_state(params, opt_cfg)
+    ps = None
+    if mesh is not None:
+        params, opt, ps = _shard_tree(mesh, params, opt)
+    step = make_train_step(cfg, opt_cfg, remat=True, grad_shardings=ps)
+    data = iter(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=2048, global_batch=8,
+                                       microbatch=4)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    host, wall, losses = [], [], []
+    for _ in range(n_steps):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+        if mesh is not None:
+            batch = _shard_batch(mesh, batch)
+        t0 = time.perf_counter()
+        with (activation_sharding(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            params, opt, m = step(params, opt, batch)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = counts.read()
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(launches.values()):
+        raise AssertionError(f"no kernel is on the training path, yet "
+                             f"{launches} launched")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"olmo-1b losses {losses}")
+    steady = sorted(wall[1:])[len(wall[1:]) // 2]
+    return {"host_s": host, "wall_s": wall, "losses": losses,
+            "steady_step_s": steady, "tokens_per_s": 8 * 2048 / steady,
+            "peak_bytes": peak, "launches": launches}
+
+
+def shard_cost(counts, mesh, plain_steady) -> dict:
+    """(b) olmo-1b whole on the (1, 1) mesh, SHARD_STEPS steps: the steady
+    wall step, tokens/s, peak memory and the ratio to the plain steady step
+    (phase 12's in a whole run; with ``--phases shard``, SHARD_STEPS plain
+    steps measured here first)."""
+    t0 = time.perf_counter()
+    plain = None
+    if plain_steady is None:
+        plain = _olmo_steps(counts, None, SHARD_STEPS)
+        plain_steady = plain["steady_step_s"]
+    out = _olmo_steps(counts, mesh, SHARD_STEPS)
+    out["plain_steady_step_s"] = plain_steady
+    out["plain"] = plain
+    out["ratio_to_plain"] = out["steady_step_s"] / plain_steady
+    say(f"[smoke] olmo-1b whole (bf16, remat, 8 x 2048 tokens in 2 "
+        f"microbatches) on the (1, 1) mesh: wall steps "
+        f"{[f'{t * 1e3:.1f}' for t in out['wall_s']]} ms, host to return "
+        f"{[f'{t * 1e3:.1f}' for t in out['host_s']]} ms; steady "
+        f"{out['steady_step_s'] * 1e3:.1f} ms, {out['tokens_per_s']:.0f} "
+        f"tokens/s, peak {out['peak_bytes'] / 2**30:.2f} GiB; plain steady "
+        f"{plain_steady * 1e3:.1f} ms"
+        + (" (measured here)" if plain is not None else " (phase 12)")
+        + f": ratio {out['ratio_to_plain']:.4f}; losses {out['losses']}; "
+          f"launches {out['launches']} [{time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+def shard_phase(counts, plain_steady=None) -> dict:
+    """Phase 13, sharding: the NCCL world of 1 and its (1, 1) mesh; (a) and
+    (c) at 2 layers, (b) olmo-1b whole."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh = shard_setup()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = shard_vs_plain(mesh, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["cost"] = shard_cost(counts, mesh, plain_steady)
+    finally:
+        dist.destroy_process_group()
+        SHARD_RDV.unlink(missing_ok=True)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[smoke] sharding phase: {out['wall_s']:.1f} s")
+    return out
+
+
 def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
                    i8_launches: int, paths: dict) -> list:
     """One entry per kernel: ``launches`` from its own path's serving run,
@@ -2385,14 +2640,16 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases",
-                    choices=("all", "kernels", "recurrent", "train"),
+                    choices=("all", "kernels", "recurrent", "train",
+                             "shard"),
                     default="all",
                     help="kernels: only the header and every kernel "
                          "against its plain version, with times (a quick "
                          "check of a kernel change); recurrent: the header, "
                          "the kernels at the recurrent archs' shapes and "
-                         "phase 11; train: the header and phase 12; all "
-                         "(default): every phase")
+                         "phase 11; train: the header and phase 12; shard: "
+                         "the header and phase 13; all (default): every "
+                         "phase")
     args = ap.parse_args(argv)
     # the resume check runs under deterministic algorithms, whose cuBLAS
     # calls need this set before CUDA initialises (on Hopper it is the
@@ -2425,6 +2682,17 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(
                 {"card": head["card"], "build_s": head["build_s"],
                  "train": trained}, indent=1))
+        say(device_line())
+        return 0
+    if args.phases == "shard":
+        sharded = shard_phase(counts)
+        say(f"[smoke] shard only: {time.perf_counter() - t_all:.1f} s on "
+            f"{head['card']}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": head["card"], "build_s": head["build_s"],
+                 "shard": sharded}, indent=1))
         say(device_line())
         return 0
     if args.phases == "recurrent":
@@ -2509,6 +2777,7 @@ def main(argv=None) -> int:
     rec = recurrent_phase(counts, serve_mod, forward, init_state,
                           init_slot_state, Request, np_rng)
     trained = train_phase(counts)
+    sharded = shard_phase(counts, trained["olmo-1b"]["steady_step_s"])
     paths = {"q4_matmul": {}, "q4_matmul_db": {}, "int8_gemm": {}}
     paths["q4_matmul_db"]["topology dual-125h (captured and uncaptured, "
                           "each)"] = topo["q4 dual-125h"]["launches"]
@@ -2563,7 +2832,7 @@ def main(argv=None) -> int:
                   "topology_eager_vs_compiled": topo_eager["runs"],
                   "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
                   "recurrent": rec, "recurrent_kernels": p2rec,
-                  "train": trained}
+                  "train": trained, "shard": sharded}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

@@ -17,6 +17,13 @@ reference writes a bfloat16 leaf as numpy's raw two-byte void (``|V2``,
 what ``np.savez`` makes of ``ml_dtypes.bfloat16``), which it cannot read
 back itself; the port reads such a leaf as bfloat16 bits where the
 template's leaf is bfloat16, and refuses it anywhere else.
+
+On a mesh (the reference's elastic restore): ``save`` of a tree of
+DTensors writes the full tensors, gathered on every rank, from rank 0
+while the other ranks wait for it, so ``latest_step`` is the same on every
+rank; ``restore(..., shardings=)`` lays each leaf out by its sharding
+(:func:`repro_torch.sharding.distribute`), on any mesh whatever the one it
+was saved from.
 """
 
 from __future__ import annotations
@@ -29,8 +36,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.specs import distribute, is_dtensor
 from repro_torch.tree import leaves_with_path, map_with_path
 
 __all__ = ["save", "restore", "latest_step", "all_steps"]
@@ -38,6 +47,8 @@ __all__ = ["save", "restore", "latest_step", "all_steps"]
 
 def _to_numpy(leaf: torch.Tensor) -> np.ndarray:
     t = leaf.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()  # a collective: every rank saves
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.cpu().numpy()
@@ -49,13 +60,17 @@ def _flatten(tree) -> dict[str, np.ndarray]:
 
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
          keep_last: int = 3) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = _flatten(tree)
+    sharded = any(is_dtensor(leaf) for _, leaf in leaves_with_path(tree))
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if sharded and dist.get_rank() != 0:
+        dist.barrier()  # rank 0 writes
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = _flatten(tree)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump({"step": step, "extra": extra or {},
@@ -64,6 +79,8 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
         shutil.rmtree(final)
     os.replace(tmp, final)
     _cleanup(ckpt_dir, keep_last)
+    if sharded:
+        dist.barrier()
     return final
 
 
@@ -106,10 +123,13 @@ def _leaf(key: str, arr: np.ndarray, like: torch.Tensor,
 
 
 def restore(ckpt_dir: str, step: int, template: Any, *,
-            device="cuda") -> tuple[Any, dict]:
+            device="cuda", shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of ``template`` (only its leaves' shapes
     and dtypes are read; they may lie on the meta device), each leaf on
-    ``device`` and cast to its template's dtype."""
+    ``device`` and cast to its template's dtype.  ``shardings`` (a tree of
+    :class:`~repro_torch.sharding.Sharding` matching ``template``, over a
+    mesh on ``device``) restores each leaf as a DTensor in that layout:
+    the elastic restore onto a different mesh."""
     dev = resolve_device(device)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
@@ -117,4 +137,6 @@ def restore(ckpt_dir: str, step: int, template: Any, *,
     with np.load(os.path.join(path, "arrays.npz")) as data:
         tree = map_with_path(lambda key, like: _leaf(key, data[key], like,
                                                      dev), template)
+    if shardings is not None:
+        tree = distribute(tree, shardings)
     return tree, meta

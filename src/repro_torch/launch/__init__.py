@@ -1,1 +1,2 @@
-"""Launchers of the port: the serve entry point."""
+"""Launchers of the port: the serve and train entry points, the meshes
+and the multi-process bootstrap."""

@@ -14,6 +14,7 @@ trunk hooks its projections into the same loop.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -21,6 +22,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.sharding.specs import (activation_sharding, constrain,
+                                        current_mesh)
 from . import attention as A
 from . import moe as M
 from . import ssm as S
@@ -227,6 +230,11 @@ def forward(
     the trunk's projections already give each row the same sums whatever
     the batch.  ``remat=True`` (training: no state, no trunk) recomputes
     each period repeat's activations in backward instead of keeping them.
+
+    Under :func:`repro_torch.sharding.activation_sharding` (DTensor
+    parameters and tokens) the activations are constrained as the
+    reference constrains them: batch over the data axes after the
+    embedding and after every layer, the logits' vocab over "model".
     """
     period = _plan(cfg)
     if embeds is not None:
@@ -235,6 +243,7 @@ def forward(
         x = embed_fwd(cfg, params["embed"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, ("dp", None, None))
     b, s, _ = x.shape
     offset = torch.as_tensor(pos_offset, device=x.device)
     steps = torch.arange(s, device=x.device)
@@ -266,6 +275,8 @@ def forward(
             x, new_st, aux = _apply_layer(cfg, mixer, ffn, p_j, x, positions,
                                           st_j, capacity, proj_attn, proj_ffn,
                                           rowwise)
+            # under a mesh: batch over the data axes, replicated over model
+            x = constrain(x, ("dp", None, None))
             if have_state and mixer == "attn":
                 idx_out[j].append(new_st.idx)
             if aux is not None:
@@ -275,13 +286,21 @@ def forward(
 
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    mesh = current_mesh()
+    remat_kw = {}
+    if mesh is not None:
+        # the recompute runs in backward, on the autograd engine's thread
+        # when on the card, outside the caller's mesh context: it enters
+        # the context again, so it takes the forward's path
+        remat_kw["context_fn"] = lambda: (contextlib.nullcontext(),
+                                          activation_sharding(mesh))
     for r in range(cfg.n_periods):
         if remat:
             # the reference's jax.checkpoint of the period body: keep only
             # the repeat's inputs, recompute its activations in backward
             x, lb, dropped = checkpoint(repeat, x, lb, dropped, r,
                                         use_reentrant=False,
-                                        preserve_rng_state=False)
+                                        preserve_rng_state=False, **remat_kw)
         else:
             x, lb, dropped = repeat(x, lb, dropped, r)
     # k/v and the recurrent states were written in place into the stacked
@@ -298,6 +317,7 @@ def forward(
     x = _norm(cfg, params["final_norm"], x, rowwise)
     if apply_head:
         logits = logits_fwd(cfg, params["embed"], x)
+        logits = constrain(logits, ("dp", None, "tp"))
     else:
         logits = x.to(torch.float32)
     n_moe = max(1, sum(1 for _, f in cfg.layer_plan() if f == "moe"))

@@ -14,6 +14,13 @@ parameters' dtype, as ``jax.grad`` gives it) and added into an
 ``acc_dtype`` (float32) accumulator, divided by the number of microbatches
 once at the end, as the reference's scan does; ``loss.backward()`` over
 several microbatches would sum them in the parameters' dtype instead.
+
+On a mesh (parameters as DTensors, run under
+:func:`repro_torch.sharding.activation_sharding`) the accumulator takes
+each parameter's placements, and ``grad_shardings`` constrains each
+microbatch's gradient, then the accumulator, to its layout: the
+reduce-scatter into the FSDP layout.  Loss and metrics come back as plain
+tensors, the same on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import loss_fn
+from repro_torch.sharding.specs import constrain_tree, is_dtensor
 from repro_torch.tree import leaves, tree_map, unflatten
 from .optimizer import AdamWConfig, OptState, adamw_update
 
@@ -32,16 +40,24 @@ __all__ = ["microbatch_grads", "make_train_step", "local_accum",
            "weighted_combine", "uneven_data_parallel_step"]
 
 
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    """A detached scalar as a plain tensor (a DTensor's full value)."""
+    t = t.detach()
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def microbatch_grads(cfg: ModelConfig, params, batch: dict, *,
                      capacity: Optional[int] = None, remat: bool = False,
-                     acc_dtype=torch.float32):
+                     acc_dtype=torch.float32, grad_shardings=None):
     """Average loss+grads over the leading microbatch axis of ``batch``
     (one microbatch's activations live at a time).  Returns (loss, grads,
     the last microbatch's metrics); loss and metrics are detached."""
     n_micro = leaves(batch)[0].shape[0]
     flat = leaves(params)
-    g_acc = [torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-             for p in flat]
+    shardings = None if grad_shardings is None else leaves(grad_shardings)
+    # zeros_like keeps a DTensor parameter's placements
+    g_acc = constrain_tree([torch.zeros_like(p, dtype=acc_dtype)
+                            for p in flat], shardings)
     l_acc = torch.zeros((), dtype=torch.float32, device=flat[0].device)
     metrics = {}
     for i in range(n_micro):
@@ -51,11 +67,15 @@ def microbatch_grads(cfg: ModelConfig, params, batch: dict, *,
             loss, metrics = loss_fn(cfg, unflatten(params, leaf_params), mb,
                                     capacity=capacity, remat=remat)
             grads = torch.autograd.grad(loss, leaf_params, allow_unused=True)
+        # constrain the addend: each microbatch's gradient goes straight
+        # into the FSDP layout (a reduce-scatter), then the accumulator
+        grads = constrain_tree(list(grads), shardings)
         for acc, g in zip(g_acc, grads):
             if g is not None:
                 acc.add_(g.to(acc_dtype))
-        l_acc = l_acc + loss.detach()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        g_acc = constrain_tree(g_acc, shardings)
+        l_acc = l_acc + _plain(loss)
+        metrics = {k: _plain(v) for k, v in metrics.items()}
     grads = unflatten(params, [acc.div_(n_micro) for acc in g_acc])
     return l_acc / n_micro, grads, metrics
 
@@ -63,17 +83,20 @@ def microbatch_grads(cfg: ModelConfig, params, batch: dict, *,
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *,
                     capacity: Optional[int] = None,
                     remat: bool = False,
-                    acc_dtype=torch.float32) -> Callable:
+                    acc_dtype=torch.float32,
+                    grad_shardings=None) -> Callable:
     """Train step: (params, opt_state, batch) -> (params, opt_state,
     metrics).  ``batch`` leaves have shape (n_micro, mb, ...)."""
 
     def step(params, opt_state: OptState, batch: dict):
         loss, grads, metrics = microbatch_grads(cfg, params, batch,
                                                 capacity=capacity, remat=remat,
-                                                acc_dtype=acc_dtype)
+                                                acc_dtype=acc_dtype,
+                                                grad_shardings=grad_shardings)
         params, opt_state, opt_metrics = adamw_update(
             opt_cfg, params, grads, opt_state)
-        metrics = dict(metrics, **opt_metrics, loss=loss)
+        metrics = dict(metrics, **{k: _plain(v) for k, v in
+                                   opt_metrics.items()}, loss=loss)
         return params, opt_state, metrics
 
     return step

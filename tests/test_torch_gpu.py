@@ -941,3 +941,108 @@ def test_gpu_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     for a, b in zip(leaves(got), leaves(tree)):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ sharding --
+@pytest.fixture(scope="module")
+def mesh11(tmp_path_factory):
+    """An NCCL process group of world size 1 (a file rendezvous) and its
+    (1, 1) ("data", "model") mesh on the card, as chip_smoke's phase 13."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL process group on the card)")
+    import torch.distributed as dist
+
+    from repro_torch.launch.cluster import init_cluster
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    rdv = tmp_path_factory.mktemp("rendezvous") / "store"
+    assert init_cluster(f"file://{rdv}", 1, 0, device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield make_debug_mesh(1, 1, device="cuda")
+    dist.destroy_process_group()
+
+
+def _sharded(mesh, params, opt):
+    from repro_torch.sharding import distribute, opt_shardings, param_shardings
+
+    ps = param_shardings(mesh, params)
+    tree = distribute({"params": params, "opt": opt},
+                      {"params": ps, "opt": opt_shardings(mesh, opt, ps)})
+    return tree["params"], tree["opt"], ps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-moe-1b-a400m"])
+def test_gpu_sharded_train_step_equals_the_plain(mesh11, arch):
+    """One train step (2 layers, f32, TF32 off, 2 microbatches, remat) on
+    the (1, 1) mesh over NCCL — DTensor parameters, optimizer state and
+    batch, ``grad_shardings`` — against the plain step on the card from the
+    same weights and batch: loss and grad norm within 1e-5, no parameter
+    parting by a learning rate or more, every leaf still on the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.sharding import (activation_sharding, batch_shardings,
+                                      distribute)
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(reduced_config(arch), n_layers=2)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 16),
+                         generator=torch.Generator().manual_seed(1)).cuda()
+    batch = {"tokens": toks, "labels": toks}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        step = make_train_step(cfg, opt_cfg, remat=True)
+        plain_p, _, pm = step(params, init_opt_state(params, opt_cfg), batch)
+        dp, do, ps = _sharded(mesh11, params, init_opt_state(params,
+                                                             opt_cfg))
+        db = distribute(batch, batch_shardings(mesh11, batch, batch_dim=1))
+        sstep = make_train_step(cfg, opt_cfg, remat=True, grad_shardings=ps)
+        with activation_sharding(mesh11):
+            shard_p, shard_o, sm = sstep(dp, do, db)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert all(isinstance(t, DTensor) and t.device_mesh is mesh11
+               for t in leaves(shard_p) + leaves(shard_o))
+    assert abs(float(sm["loss"]) - float(pm["loss"])) <= \
+        1e-5 * abs(float(pm["loss"]))
+    assert abs(float(sm["grad_norm"]) - float(pm["grad_norm"])) <= \
+        1e-5 * abs(float(pm["grad_norm"]))
+    for a, b in zip(leaves(shard_p), leaves(plain_p)):
+        assert int(((a.full_tensor() - b).abs() >= opt_cfg.lr).sum()) == 0
+
+
+@pytest.mark.gpu
+def test_gpu_restore_onto_the_mesh_is_bitwise(mesh11, tmp_path):
+    """A plain checkpoint of reduced olmo (bf16 params, f32 moments)
+    restored with ``shardings=`` onto the (1, 1) mesh: DTensor leaves on
+    the mesh, bitwise the plain restore."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.sharding import opt_shardings, param_shardings
+    from repro_torch.training import init_opt_state
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(reduced_config("olmo-1b"), n_layers=2,
+                              dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    tree = {"params": params, "opt": init_opt_state(params)}
+    save(str(tmp_path), 1, tree)
+    plain, _ = restore(str(tmp_path), 1, tree, device="cuda")
+    ps = param_shardings(mesh11, params)
+    onto, _ = restore(str(tmp_path), 1, tree, device="cuda", shardings={
+        "params": ps, "opt": opt_shardings(mesh11, tree["opt"], ps)})
+    for a, b in zip(leaves(onto), leaves(plain)):
+        assert isinstance(a, DTensor) and a.device_mesh is mesh11
+        assert a.dtype == b.dtype and torch.equal(a.full_tensor(), b)
