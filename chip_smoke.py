@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DETAIL.json]
-                          [--phases all|kernels|recurrent|train|shard]
+                          [--phases all|kernels|recurrent|train|shard|dryrun]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -132,14 +132,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens/s, peak memory and the ratio to phase 12's plain steady step;
    (c) the plain 2-layer step's checkpoint restored with ``shardings=``
    onto the mesh, bitwise equal to the plain restore.
-14. A JSON line with every kernel's numbers, then the device line.
+14. The dry run (phase 14; no kernel is on its path, and its launches are
+   held at 0), in a subprocess of its own, which traces on the host's CPU
+   while phases 12 and 13 keep the card busy: (a) olmo-1b x train_4k at full
+   width and depth traced by ``repro_torch.launch.dryrun`` on the 16x16
+   production mesh of a fake process group of 256 ranks, on meta tensors:
+   its JSON summary line (trace seconds, analytic FLOPs and HBM bytes, the
+   wire bytes of the collectives it issued, the three roofline terms,
+   the per-device peak bytes); (b) phase 12's own step (olmo-1b, 8 x 2048
+   tokens in 2 microbatches, remat, a world of 1) dry-run: its predicted
+   peak bytes, t_bound and t_compute beside phase 12's measured peak
+   memory and steady step.  The subprocess must not have imported
+   ``jax`` or ``repro``.
+15. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
 a change to any kernel.  ``--phases recurrent`` runs phase 1, phase 2 at
 the recurrent archs' shapes and phase 11; ``--phases train`` runs phases
 1 and 12; ``--phases shard`` runs phases 1 and 13, (b) then timing 3
-plain steps of its own for the ratio.
+plain steps of its own for the ratio; ``--phases dryrun`` runs phases 1
+and 14, with no phase 12 numbers beside (b).
 
 Every figure of the machine model that the serve lines print (TTFT,
 TPOT, ratio tables, socket splits, ``achieved_bw_frac``, GB/s of the
@@ -2578,6 +2591,137 @@ def shard_phase(counts, plain_steady=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------- dry run --
+DRYRUN_TIMEOUT_S = 600
+# phase 14's subprocess: the port's dry run of one production cell over a
+# fake world of 256 ranks, then phase 12's own step on a world of 1; it
+# writes its results to the JSON file named by its argument
+DRYRUN_SCRIPT = r"""
+import importlib.util, json, math, sys, time
+sys.path.insert(0, sys.argv[2])
+from repro_torch.configs import SHAPES, ShapeSpec, get_config
+from repro_torch.launch.dryrun import (SUMMARY_KEYS, init_fake_world,
+                                       production_mesh, trace_cell)
+
+out = {"jax_importable": importlib.util.find_spec("jax") is not None}
+# (a) olmo-1b x train_4k on the 16x16 mesh, full width and depth
+init_fake_world(256)
+mesh = production_mesh()
+got = trace_cell(get_config("olmo-1b"), SHAPES["train_4k"], mesh,
+                 arch="olmo-1b")
+roof = got["roofline"].to_dict()
+roof.update(mesh_shape=list(mesh.shape), trace_seconds=got["trace_seconds"],
+            collectives_issued=len(got["recorder"].records),
+            t_bound=got["roofline"].t_bound)
+out["cell"] = {k: roof[k] for k in SUMMARY_KEYS + ("t_bound",
+                                                   "collectives_issued",
+                                                   "collective_ops")}
+# (b) phase 12's step: olmo-1b, 8 x 2048 tokens in 2 microbatches, remat,
+# plain on one device
+t0 = time.perf_counter()
+step = trace_cell(get_config("olmo-1b"), ShapeSpec("train_8x2048", "train",
+                                                   2048, 8), None,
+                  arch="olmo-1b", n_micro=2)
+r = step["roofline"]
+out["phase12_step"] = {"peak_mem_bytes": r.peak_mem_bytes,
+                       "t_bound": r.t_bound, "t_compute": r.t_compute,
+                       "t_memory": r.t_memory, "bottleneck": r.bottleneck,
+                       "flops": r.flops, "hlo_flops_raw": r.hlo_flops_raw,
+                       "trace_seconds": step["trace_seconds"]}
+from repro_torch.kernels import int8_gemm, q4_matmul
+out["launches"] = {"q4_matmul": q4_matmul.q4_matmul.launches,
+                   "q4_matmul_db": q4_matmul.q4_matmul_db.launches,
+                   "int8_gemm": int8_gemm.int8_gemm.launches}
+# neither the reference package nor JAX came in with the port
+out["imported"] = sorted(m for m in ("jax", "repro") if m in sys.modules)
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+
+class DryRun:
+    """Phase 14's subprocess, started by :meth:`start` and read by
+    :func:`dryrun_phase`.  It traces on the host's CPU only (meta tensors,
+    no kernel, no device memory), so a whole run starts it before phase 12,
+    whose steps are bound by the card, and reads it after phase 13."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_SCRIPT,
+             f"{self.tmp.name}/dryrun.json",
+             str(Path(__file__).resolve().parent / "src")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=self.tmp.name)
+
+    def result(self) -> dict:
+        try:
+            _, err = self.proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate()
+            raise AssertionError(f"the dry run took over {DRYRUN_TIMEOUT_S} s")
+        try:
+            if self.proc.returncode != 0:
+                raise AssertionError(f"the dry run failed:\n{err[-4000:]}")
+            out = json.loads(Path(f"{self.tmp.name}/dryrun.json").read_text())
+        finally:
+            self.tmp.cleanup()
+        out["subprocess_s"] = time.perf_counter() - self.t0
+        return out
+
+
+def dryrun_phase(run: DryRun, phase12=None) -> dict:
+    """Phase 14, the dry run, in a subprocess of its own (it joins a fake
+    process group): (a) olmo-1b x train_4k traced at full width and depth on
+    the 16x16 mesh of a fake world of 256 ranks, its JSON summary line;
+    (b) phase 12's step (olmo-1b, 8 x 2048 tokens in 2 microbatches, remat,
+    a world of 1) dry-run: its predicted peak bytes, t_bound and t_compute
+    beside phase 12's measured peak and steady step (``phase12``; None
+    with ``--phases dryrun``, which runs no training).  Neither ``jax`` nor
+    ``repro`` may be imported by the port's dry run, and no kernel wrapper
+    of the subprocess may count a launch."""
+    t0 = time.perf_counter()
+    out = run.result()
+    launches = out["launches"]
+    if any(launches.values()):
+        raise AssertionError(f"no kernel is on the dry run's path, yet "
+                             f"{launches} launched")
+    if out["imported"]:
+        raise AssertionError(f"the port's dry run imported {out['imported']}")
+    cell, step = out["cell"], out["phase12_step"]
+    for what, v in (("cell", cell), ("step", step)):
+        if not all(math.isfinite(v[k]) and v[k] > 0
+                   for k in ("peak_mem_bytes", "t_bound", "t_compute")):
+            raise AssertionError(f"dry run {what}: {v}")
+    say("[smoke] dry run, olmo-1b x train_4k on the 16x16 mesh (fake world "
+        "of 256 ranks, meta tensors): " + json.dumps(cell))
+    measured = ""
+    if phase12 is not None:
+        out["phase12_measured"] = phase12
+        measured = (f"; measured in phase 12: peak "
+                    f"{phase12['peak_bytes'] / 2**30:.2f} GiB "
+                    f"(predicted/measured "
+                    f"{step['peak_mem_bytes'] / phase12['peak_bytes']:.3f}), "
+                    f"steady step {phase12['steady_step_s']:.4f} s "
+                    f"(t_bound/step "
+                    f"{step['t_bound'] / phase12['steady_step_s']:.3f}, "
+                    f"t_compute/step "
+                    f"{step['t_compute'] / phase12['steady_step_s']:.3f})")
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[smoke] dry run of phase 12's step (olmo-1b, 8 x 2048 tokens, 2 "
+        f"microbatches, remat, one device): predicted peak "
+        f"{step['peak_mem_bytes'] / 2**30:.2f} GiB (live local tensors, a "
+        f"lower bound), t_bound {step['t_bound']:.4f} s ({step['bottleneck']}"
+        f"), t_compute {step['t_compute']:.4f} s, t_memory "
+        f"{step['t_memory']:.4f} s{measured}; jax importable "
+        f"{out['jax_importable']}, imported by the dry run "
+        f"{out['imported'] or 'none'}; launches {launches} "
+        f"[{out['subprocess_s']:.1f} s in its subprocess, "
+        f"{out['wall_s']:.1f} s waited for]")
+    return out
+
+
 def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
                    i8_launches: int, paths: dict) -> list:
     """One entry per kernel: ``launches`` from its own path's serving run,
@@ -2641,15 +2785,15 @@ def main(argv=None) -> int:
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases",
                     choices=("all", "kernels", "recurrent", "train",
-                             "shard"),
+                             "shard", "dryrun"),
                     default="all",
                     help="kernels: only the header and every kernel "
                          "against its plain version, with times (a quick "
                          "check of a kernel change); recurrent: the header, "
                          "the kernels at the recurrent archs' shapes and "
                          "phase 11; train: the header and phase 12; shard: "
-                         "the header and phase 13; all (default): every "
-                         "phase")
+                         "the header and phase 13; dryrun: the header and "
+                         "phase 14; all (default): every phase")
     args = ap.parse_args(argv)
     # the resume check runs under deterministic algorithms, whose cuBLAS
     # calls need this set before CUDA initialises (on Hopper it is the
@@ -2693,6 +2837,17 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(
                 {"card": head["card"], "build_s": head["build_s"],
                  "shard": sharded}, indent=1))
+        say(device_line())
+        return 0
+    if args.phases == "dryrun":
+        dry = dryrun_phase(DryRun())
+        say(f"[smoke] dry run only: {time.perf_counter() - t_all:.1f} s on "
+            f"{head['card']}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": head["card"], "build_s": head["build_s"],
+                 "dryrun": dry}, indent=1))
         say(device_line())
         return 0
     if args.phases == "recurrent":
@@ -2776,8 +2931,11 @@ def main(argv=None) -> int:
     zoo = zoo_phase(counts, serve_mod, forward, init_state, Request, np_rng)
     rec = recurrent_phase(counts, serve_mod, forward, init_state,
                           init_slot_state, Request, np_rng)
+    dry_run = DryRun()   # on the host's CPU while phases 12-13 run
     trained = train_phase(counts)
     sharded = shard_phase(counts, trained["olmo-1b"]["steady_step_s"])
+    dry = dryrun_phase(dry_run, {
+        k: trained["olmo-1b"][k] for k in ("peak_bytes", "steady_step_s")})
     paths = {"q4_matmul": {}, "q4_matmul_db": {}, "int8_gemm": {}}
     paths["q4_matmul_db"]["topology dual-125h (captured and uncaptured, "
                           "each)"] = topo["q4 dual-125h"]["launches"]
@@ -2832,7 +2990,7 @@ def main(argv=None) -> int:
                   "topology_eager_vs_compiled": topo_eager["runs"],
                   "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
                   "recurrent": rec, "recurrent_kernels": p2rec,
-                  "train": trained, "shard": sharded}
+                  "train": trained, "shard": sharded, "dryrun": dry}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

@@ -4,6 +4,8 @@ hybrid and xLSTM families in :mod:`.ssm` and :mod:`.xlstm`), its balanced
 trunk, and the weight converter from the reference's pytrees."""
 
 from .transformer import (
+    abstract_params,
+    abstract_state,
     balanced_lm_head,
     init_params,
     init_state,
@@ -18,6 +20,8 @@ from .convert import opt_state_from_numpy, params_from_numpy
 from . import ssm, xlstm
 
 __all__ = [
+    "abstract_params",
+    "abstract_state",
     "BalancedTrunk",
     "BalancedQuantLinear",
     "BalancedLinear",

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.specs import is_dtensor, shard_offsets
 from repro_torch.quant.int8 import (
     QuantizedWeightI8,
     quantize_s8_symmetric,
@@ -109,7 +110,59 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
 
 
 def embed_fwd(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The token rows of the embedding table (on a DTensor table, see
+    :func:`_embed_on_shards`)."""
+    if is_dtensor(p["tok"]):
+        return _embed_on_shards(p["tok"], tokens)
     return p["tok"][tokens.long()]
+
+
+def _embed_on_shards(tok, tokens):
+    """The rows of a DTensor table whose vocab (dim 0) may be split and
+    whose d is whole, for tokens split over batch rows (or replicated):
+    each rank looks up the tokens that fall in its vocab slice, zeros for
+    the others, and the partial rows are summed over the vocab's mesh dims
+    (an all-reduce; a reduce-scatter of the rows' gradient comes back).
+    DTensor's own strategies for the lookup fail in backward: the
+    indexing's ``index_put`` on batch-sharded tokens (torch 2.11), the
+    embedding's vocab-parallel partial sum (torch 2.13)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = tok.device_mesh
+    if is_dtensor(tokens):
+        tok_pl = list(tokens.placements)
+        idx = tokens.to_local()
+    else:
+        tok_pl = [Replicate()] * mesh.ndim
+        idx = tokens
+    out_pl, whole_pl, grad_pl = [], [], []
+    for tp, ip in zip(tok.placements, tok_pl):
+        if isinstance(tp, Shard) and tp.dim == 0 and \
+                isinstance(ip, Replicate):
+            out_pl.append(Partial())
+            whole_pl.append(Replicate())
+            grad_pl.append(tp)
+        elif isinstance(tp, Replicate) and not isinstance(ip, Partial):
+            out_pl.append(ip)
+            whole_pl.append(ip)
+            # the rows of this rank's tokens only: a partial gradient
+            grad_pl.append(Partial() if isinstance(ip, Shard) else tp)
+        else:
+            return F.embedding(tokens.long(), tok)
+    local = tok.to_local(grad_placements=grad_pl)
+    v0, n = shard_offsets(tok)[0], local.shape[0]
+    rel = idx.long() - v0
+    inside = (rel >= 0) & (rel < n)
+    rows = torch.where(inside[..., None],
+                       F.embedding(torch.clamp(rel, 0, n - 1), local),
+                       torch.zeros((), dtype=local.dtype,
+                                   device=local.device))
+    shape = (*tokens.shape, local.shape[1])
+    out = DTensor.from_local(rows, mesh, out_pl, run_check=False,
+                             shape=shape,
+                             stride=torch.empty(shape, device="meta")
+                             .stride())
+    return out.redistribute(mesh, whole_pl)
 
 
 def logits_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.specs import copy_into
 from .layers import _dense
 
 __all__ = ["MambaState", "dt_rank", "d_inner", "init_mamba",
@@ -175,6 +176,6 @@ def mamba_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
     out = (y * F.silu(z.to(torch.float32))).to(x.dtype) @ p["out_proj"]
     if state is None:
         return out, None
-    state.h.copy_(h)
-    state.conv.copy_(new_conv)
+    copy_into(state.h, h)
+    copy_into(state.conv, new_conv)
     return out, state

@@ -23,7 +23,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.sharding.specs import (activation_sharding, constrain,
-                                        current_mesh)
+                                        current_mesh, gather_fsdp,
+                                        is_dtensor, is_sharded)
 from . import attention as A
 from . import moe as M
 from . import ssm as S
@@ -91,6 +92,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     }
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """:func:`init_params`'s tree on the meta device (shapes and dtypes, no
+    allocation): the dry run's weights (the reference's ``jax.eval_shape``
+    of its ``init_params``)."""
+    return init_params(cfg, torch.Generator(), device="meta")
+
+
 # --------------------------------------------------------------- states ---
 def init_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> list:
@@ -112,6 +120,11 @@ def init_state(cfg: ModelConfig, batch: int, max_seq: int, *,
             out.append(RECURRENT_STATE[mixer](cfg, batch, device=device,
                                               n_rep=n_rep))
     return out
+
+
+def abstract_state(cfg: ModelConfig, batch: int, max_seq: int) -> list:
+    """:func:`init_state`'s tree on the meta device."""
+    return init_state(cfg, batch, max_seq, device="meta")
 
 
 def init_slot_state(cfg: ModelConfig, n_slots: int, max_seq: int, *,
@@ -139,6 +152,26 @@ def _tree_index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _tree_index(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+# the MoE's expert tensors: its mesh branches lay them out themselves
+EXPERT_WEIGHTS = ("wi", "wg", "wo")
+
+
+def _layer_weights(p: dict, ffn: str) -> dict:
+    """A layer's weights gathered over the FSDP axes where the layer runs
+    (:func:`~repro_torch.sharding.gather_fsdp`; nothing off a mesh), but
+    for an MoE's expert tensors: the MoE's mesh branches redistribute
+    them as they need, and a serve layout splits their ff over "data" on
+    purpose (weights stationary at decode)."""
+    if ffn != "moe":
+        return gather_fsdp(p)
+    out = gather_fsdp({k: v for k, v in p.items() if k != "ffn"})
+    f = p["ffn"]
+    out["ffn"] = dict(gather_fsdp({k: v for k, v in f.items()
+                                   if k not in EXPERT_WEIGHTS}),
+                      **{k: v for k, v in f.items() if k in EXPERT_WEIGHTS})
+    return out
 
 
 def _norm(cfg, p, x, rowwise: bool) -> torch.Tensor:
@@ -174,7 +207,9 @@ def _apply_layer(cfg, mixer, ffn, p, x, positions, state, capacity,
     h = _norm(cfg, p["norm1"], x, rowwise)
     mix, new_state = _mix(cfg, mixer, p["mixer"], h, positions, state,
                           proj_attn, rowwise)
-    x = x + mix
+    # under a mesh the mixer's and the FFN's outputs are partial sums over
+    # "model": summed here, in their own dtype, into the residual's layout
+    x = x + constrain(mix, ("dp", None, None))
     aux = None
     if ffn != "none":
         h2 = _norm(cfg, p["norm2"], x, rowwise)
@@ -183,7 +218,7 @@ def _apply_layer(cfg, mixer, ffn, p, x, positions, state, capacity,
             y, aux = M.moe_fwd(cfg, p["ffn"], h2, capacity)
         else:
             y = mlp_fwd(cfg, p["ffn"], h2, proj=proj_ffn)
-        x = x + y
+        x = x + constrain(y, ("dp", None, None))
     return x, new_state, aux
 
 
@@ -240,7 +275,7 @@ def forward(
     if embeds is not None:
         x = embeds.to(cfg.cdtype)
     else:
-        x = embed_fwd(cfg, params["embed"], tokens)
+        x = embed_fwd(cfg, gather_fsdp(params["embed"]), tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     x = constrain(x, ("dp", None, None))
@@ -261,7 +296,7 @@ def forward(
     def repeat(x, lb, dropped, r):
         """Period repeat ``r``: every (mixer, ffn) position in turn."""
         for j, (mixer, ffn) in enumerate(period):
-            p_j = _tree_index(params["period"][j], r)
+            p_j = _layer_weights(_tree_index(params["period"][j], r), ffn)
             st_j = None
             if have_state:
                 st_j = type(state[j])(*(t[r] for t in state[j]))
@@ -316,7 +351,7 @@ def forward(
         x = x[:, -1:, :]
     x = _norm(cfg, params["final_norm"], x, rowwise)
     if apply_head:
-        logits = logits_fwd(cfg, params["embed"], x)
+        logits = logits_fwd(cfg, gather_fsdp(params["embed"]), x)
         logits = constrain(logits, ("dp", None, "tp"))
     else:
         logits = x.to(torch.float32)
@@ -370,10 +405,24 @@ def loss_fn(
     logits = out.logits
     if logits.shape[1] != labels.shape[1]:  # prefix positions carry no loss
         logits = logits[:, logits.shape[1] - labels.shape[1]:, :]
+        if is_dtensor(logits):
+            # DTensor propagates a shape through the op on fake tensors of
+            # the mesh's device type: a strided log-softmax there needs that
+            # device's kernels, which a dry run on a host without a card
+            # lacks
+            logits = logits.contiguous()
     valid = labels != -100
     safe = torch.where(valid, labels, 0).long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if is_sharded(logits, -1):
+        # vocab over "model": DTensor's log-softmax would gather the
+        # logits; max and sum reduce the sharded vocab by all-reduces of
+        # one value per token, as GSPMD lowers it
+        m = logits.amax(-1, keepdim=True).detach()
+        lse = m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+        nll = (lse - torch.gather(logits, -1, safe[..., None]))[..., 0]
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     denom = torch.clamp(valid.sum(), min=1)
     ce = torch.where(valid, nll, 0.0).sum() / denom
     total = ce + lb_coef * out.aux["lb_loss"]

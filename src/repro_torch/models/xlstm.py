@@ -25,6 +25,12 @@ every shape is fixed by the input's, so both mixers run inside a captured
 CUDA graph.  Without a state (training, and any stateless forward) the
 mLSTM memory starts from zeros and advances out of place, so autograd can
 differentiate through the chunks.
+
+On a mesh (DTensor activations) the forget gates' log-sigmoid is taken as
+``-softplus(-x)``: DTensor has no sharding strategy for
+``aten.log_sigmoid_backward``, and softplus and its backward are
+pointwise ones it has.  Off a mesh it stays ``F.logsigmoid``, bit for bit
+(:func:`_log_sigmoid`).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.specs import copy_into, is_dtensor, reshape
 from .layers import _dense
 
 __all__ = ["NEG", "MLSTMState", "mlstm_dims", "init_mlstm",
@@ -43,6 +50,14 @@ __all__ = ["NEG", "MLSTMState", "mlstm_dims", "init_mlstm",
            "slstm_step", "slstm_fwd"]
 
 NEG = -1e30
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))``: ``F.logsigmoid`` on a plain tensor, ``-softplus(
+    -x)`` on a DTensor (the same values to rounding; see the module)."""
+    if is_dtensor(x):
+        return -F.softplus(-x)
+    return F.logsigmoid(x)
 
 
 # =============================================================== mLSTM ====
@@ -147,12 +162,20 @@ def _mlstm_chunk(q, k, v, ig, fg, state, inplace: bool = True):
     n_upd = torch.einsum("bhl,bhld->bhd", wk_end, k)
     bsz, nh, dv, dk = c0.shape
     wv = (wk_end[..., None] * v).transpose(2, 3)      # (B,H,dv,L)
-    if not inplace:
-        c = torch.baddbmm((c0 * decay[..., None, None]).view(bsz * nh, dv, dk),
-                          wv.reshape(bsz * nh, dv, l),
-                          k.reshape(bsz * nh, l, dk))
-        return h, (c.view(bsz, nh, dv, dk), n0 * decay[..., None] + n_upd,
-                   m_end)
+    if not inplace or is_dtensor(c0):
+        c = torch.baddbmm(reshape(c0 * decay[..., None, None],
+                                  (bsz * nh, dv, dk)),
+                          reshape(wv, (bsz * nh, dv, l)),
+                          reshape(k, (bsz * nh, l, dk)))
+        new = (reshape(c, (bsz, nh, dv, dk)), n0 * decay[..., None] + n_upd,
+               m_end)
+        if not inplace:
+            return h, new
+        # a DTensor state: the update's partial sums would change its
+        # placements in place; computed out of place, copied back
+        for dst, src in zip((c0, n0, m0), new):
+            copy_into(dst, src)
+        return h, (c0, n0, m0)
     c0.mul_(decay[..., None, None])
     c0.view(bsz * nh, dv, dk).baddbmm_(wv.reshape(bsz * nh, dv, l),
                                        k.reshape(bsz * nh, l, dk))
@@ -221,8 +244,8 @@ def mlstm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
     uc, new_conv = _mlstm_causal_conv(
         cfg, p, u, state.conv if state is not None else None)
 
-    uc_h = uc.reshape(b_sz, s_len, nh, dv)
-    u_h = u.reshape(b_sz, s_len, nh, dv)
+    uc_h = reshape(uc, (b_sz, s_len, nh, dv))
+    u_h = reshape(u, (b_sz, s_len, nh, dv))
     # q in the compute dtype, then f32, then scaled (the reference's order)
     q = torch.einsum("bshd,hdk->bhsk", uc_h, p["wq"]).to(torch.float32) \
         * dk ** -0.5
@@ -230,7 +253,7 @@ def mlstm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
     v = torch.einsum("bshd,hdk->bhsk", u_h, p["wv"]).to(torch.float32)
     gates = uc.to(torch.float32) @ p["w_if"] + p["b_if"]
     ig = gates[..., :nh].transpose(1, 2)                  # (B,H,S)
-    fg = F.logsigmoid(gates[..., nh:]).transpose(1, 2)
+    fg = _log_sigmoid(gates[..., nh:]).transpose(1, 2)
 
     if state is not None:
         st = (state.c, state.n, state.m)
@@ -250,11 +273,11 @@ def mlstm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
     h = hs[0] if len(hs) == 1 else torch.cat(hs, dim=2)
 
     h = _headwise_rms(h)
-    h = h.transpose(1, 2).reshape(b_sz, s_len, di).to(x.dtype)
+    h = reshape(h.transpose(1, 2), (b_sz, s_len, di)).to(x.dtype)
     out = (h * F.silu(z)) @ p["w_down"]
     if state is None:
         return out, None
-    state.conv.copy_(new_conv)
+    copy_into(state.conv, new_conv)
     return out, state
 
 
@@ -305,12 +328,12 @@ def slstm_step(cfg: ModelConfig, p: dict, xt: torch.Tensor,
     nh = cfg.n_heads
     dh = d // nh
     b = xt.shape[0]
-    hh = st.h.reshape(b, nh, dh)
-    rec = torch.einsum("bhd,hde->bhe", hh, p["r_h"]).reshape(b, 4 * d)
+    hh = reshape(st.h, (b, nh, dh))
+    rec = reshape(torch.einsum("bhd,hde->bhe", hh, p["r_h"]), (b, 4 * d))
     g = xt.to(torch.float32) + rec + p["bias"]
     zg, ig, fg, og = torch.split(g, d, dim=-1)
     z = torch.tanh(zg)
-    fg = F.logsigmoid(fg)
+    fg = _log_sigmoid(fg)
     m_t = torch.maximum(fg + st.m, ig)
     i_p = torch.exp(ig - m_t)
     f_p = torch.exp(fg + st.m - m_t)
@@ -339,5 +362,5 @@ def slstm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if state is None:
         return out, None
     for dst, src in zip(state, st):
-        dst.copy_(src)
+        copy_into(dst, src)
     return out, state

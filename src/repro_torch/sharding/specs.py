@@ -29,6 +29,12 @@ of a 512-device mesh are computed in one process.  ``_fit_spec``
 replicates every dim its axes do not divide, so every shard is even;
 :func:`distribute` asserts that and builds no uneven DTensor.
 
+Where DTensor's own choice would raise or move far more than GSPMD
+does, the model goes through :func:`reshape` (a head split the model
+axis does not divide), :func:`gather_fsdp` (a layer's weights, where the
+layer runs) and :func:`copy_into` (a recurrent state advanced in its own
+layout); each is the plain operation off a mesh.
+
 ``torch.distributed.tensor`` is imported only where a mesh is in use: it
 brings ~70k objects that every full garbage collection then walks, which
 slows the host's Python loops (the serving feedback) of a run that never
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 import re
 import sys
@@ -47,11 +54,12 @@ from typing import Any, NamedTuple
 
 from repro_torch.tree import leaves_with_path, map_with_path, tree_map
 
-__all__ = ["MeshLayout", "Sharding", "layout_of", "is_dtensor", "fsdp_axes",
+__all__ = ["MeshLayout", "Sharding", "layout_of", "is_dtensor",
+           "is_sharded", "shard_offsets", "fsdp_axes",
            "data_axes", "param_shardings", "state_shardings",
            "batch_shardings", "opt_shardings", "distribute",
-           "activation_sharding", "constrain", "constrain_tree",
-           "current_mesh"]
+           "activation_sharding", "constrain", "constrain_tree", "reshape",
+           "gather_fsdp", "copy_into", "current_mesh"]
 
 
 class MeshLayout(NamedTuple):
@@ -69,6 +77,33 @@ def is_dtensor(x) -> bool:
     DTensor exists before it is imported)."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def is_sharded(x, dim: int) -> bool:
+    """Whether ``x`` is a DTensor whose tensor dim ``dim`` is split over a
+    mesh dim (``Shard(dim)``)."""
+    if not is_dtensor(x):
+        return False
+    dim %= x.dim()
+    return any(getattr(p, "dim", None) == dim and p.is_shard()
+               for p in x.placements)
+
+
+def shard_offsets(t) -> list:
+    """Where this rank's local shard of DTensor ``t`` starts, per tensor
+    dim (even shards; a dim split over several mesh dims in mesh order,
+    as :attr:`Sharding.placements` lays it out)."""
+    coord = t.device_mesh.get_coordinate()
+    sizes = t.device_mesh.shape
+    local = t.to_local().shape
+    out = []
+    for d in range(t.dim()):
+        chunk = 0
+        for m, p in enumerate(t.placements):
+            if p.is_shard() and p.dim == d:
+                chunk = chunk * sizes[m] + coord[m]
+        out.append(chunk * local[d])
+    return out
 
 
 def layout_of(mesh) -> MeshLayout:
@@ -412,6 +447,99 @@ def constrain(x, dims) -> Any:
     return x.redistribute(x.device_mesh, s.placements)
 
 
+def _view_groups(src: tuple, dst: tuple) -> list:
+    """The reshape ``src`` -> ``dst`` as groups (input dims, output dims)
+    of equal element counts, in order; trailing size-1 dims are groups of
+    their own."""
+    groups, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        ins, outs, a, b = [i], [j], src[i], dst[j]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b:
+                ins.append(i)
+                a *= src[i]
+                i += 1
+            else:
+                outs.append(j)
+                b *= dst[j]
+                j += 1
+        groups.append((ins, outs))
+    groups += [([k], []) for k in range(i, len(src))]
+    groups += [([], [k]) for k in range(j, len(dst))]
+    return groups
+
+
+def reshape(x, shape) -> Any:
+    """``x.reshape(shape)``; on a DTensor, each tensor dim sharded where the
+    view cannot carry its shard is first made ``Replicate()`` on its mesh
+    dims, as GSPMD reshards before such a reshape.  A shard survives a
+    view when its dim is the first (non-unit) input dim of its group and
+    the group's first (non-unit) output dim divides by the dim's number of
+    shards: heads split out of a projection sharded 16 ways keep the shard
+    when 16 divides the head count, and are gathered when it does not (8
+    kv heads against ``"model"`` = 16).  The backward reshapes the
+    gradient back by the same rule (a head merge in the forward is a split
+    in the backward).  A plain tensor is reshaped as it is, so the path
+    off a mesh keeps its bits."""
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    return _dtensor_reshape().apply(x, tuple(shape))
+
+
+@functools.cache
+def _dtensor_reshape():
+    """The autograd function behind :func:`reshape` on a DTensor (made on
+    first use: no DTensor import when nothing shards)."""
+    import torch
+
+    class Reshape(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, shape):
+            ctx.src = tuple(x.shape)
+            return _reshard_and_reshape(x, shape)
+
+        @staticmethod
+        def backward(ctx, g):
+            return reshape(g, ctx.src), None
+
+    return Reshape
+
+
+def _reshard_and_reshape(x, shape):
+    from torch.distributed.tensor import Replicate, Shard
+
+    src = tuple(x.shape)
+    dst = tuple(_resolve_shape(src, shape))
+    sizes = tuple(x.device_mesh.shape)
+    placements = list(x.placements)
+    if 0 not in src:
+        for ins, outs in _view_groups(src, dst):
+            ins = [d for d in ins if src[d] != 1]
+            outs = [d for d in outs if dst[d] != 1]
+            for i in ins:
+                mdims = [m for m, p in enumerate(placements)
+                         if isinstance(p, Shard) and p.dim == i]
+                n = math.prod(sizes[m] for m in mdims)
+                if mdims and not (i == ins[0] and outs
+                                  and dst[outs[0]] % n == 0):
+                    for m in mdims:
+                        placements[m] = Replicate()
+    if tuple(placements) != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    return x.reshape(dst)
+
+
+def _resolve_shape(src: tuple, shape) -> tuple:
+    """``shape`` with its one ``-1`` entry worked out from ``src``."""
+    shape = tuple(shape)
+    if -1 in shape:
+        known = math.prod(d for d in shape if d != -1)
+        shape = tuple(math.prod(src) // known if d == -1 else d
+                      for d in shape)
+    return shape
+
+
 def constrain_tree(tree, shardings) -> Any:
     """Constrain a tree (e.g. grad accumulators) to given shardings leaf by
     leaf; no-op when no mesh context is installed, and on plain tensors."""
@@ -420,6 +548,48 @@ def constrain_tree(tree, shardings) -> Any:
     return tree_map(
         lambda x, s: (x.redistribute(x.device_mesh, s.placements)
                       if is_dtensor(x) else x), tree, shardings)
+
+
+def gather_fsdp(tree) -> Any:
+    """Each DTensor of ``tree`` whole over the FSDP axes ("pod", "data"),
+    its "model" placement kept: a layer's weights gathered where the layer
+    uses them, as FSDP gathers them and as GSPMD lowers a batch-sharded
+    product with a weight sharded on its contraction dim.  DTensor's
+    per-operator choice would instead shard the activations' contraction
+    dim and all-reduce the product's partial sums, a tensor of B*S*d_ff
+    elements per FFN product (``python -m repro_torch.launch.hloscan``
+    shows which).  The backward returns the gradient by a
+    reduce-scatter.  No-op outside an :func:`activation_sharding` context
+    and on plain tensors."""
+    mesh = _ACT_MESH.get()
+    if mesh is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    axes = fsdp_axes(mesh)
+
+    def one(x):
+        if not is_dtensor(x):
+            return x
+        names = x.device_mesh.mesh_dim_names
+        placements = [Replicate() if names[m] in axes else p
+                      for m, p in enumerate(x.placements)]
+        if tuple(placements) == tuple(x.placements):
+            return x
+        return x.redistribute(x.device_mesh, placements)
+
+    return tree_map(one, tree)
+
+
+def copy_into(dst, src) -> None:
+    """``dst.copy_(src)``, a DTensor ``src`` first brought to ``dst``'s
+    placements (DTensor refuses, in torch 2.11, an in-place op whose
+    result would change the destination's placements): a recurrent
+    state advanced in its own layout."""
+    if is_dtensor(dst) and is_dtensor(src) and \
+            tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 def current_mesh():

@@ -5,13 +5,17 @@
   equal the port's specs entry for entry, on mesh layouts of the same
   names and sizes (no process group).
 * Multi-rank: 4 gloo processes (a file rendezvous under the test's
-  temporary directory, no port) hold two meshes, (2, 2) and (4, 1), and
-  run the sharded train step, both MoE mesh branches, a checkpoint saved
-  from one mesh and restored onto the other, and ``constrain``; the
-  reference runs the same train step and MoE layers on its (2, 2) and (4,
-  1) Auto meshes in the same subprocess as the placements, from the same
-  numpy inputs.  All of it starts together, once per module, with the
-  2-rank ``launch.train`` run.
+  temporary directory, no port) hold three meshes, (2, 2), (4, 1) and
+  (1, 4), and run the sharded train step, both MoE mesh branches, a
+  checkpoint saved from one mesh and restored onto the other,
+  ``constrain``, and the three places where the plain operation raises
+  on DTensors (head reshapes over a model axis that does not divide the
+  heads, the mLSTM/sLSTM log-sigmoid's backward, the decode cache write
+  on a sequence-sharded cache); the reference runs the same train steps, MoE
+  layers and decode on its Auto meshes of the same shapes in the same
+  subprocess as the placements, from the same numpy inputs.  All of it
+  starts together, once per module, with the 2-rank ``launch.train``
+  run.
 
 Tolerances:
 
@@ -28,8 +32,27 @@ Tolerances:
   beside it.
 * The restore onto another mesh, bitwise.  The 2-rank launch, 1e-5 of
   the 1-rank run's losses.
+* The repairs on (1, 4): reduced granite-moe-1b-a400m's train step (2 kv
+  heads against a model axis of 4) as the sharded train step above;
+  reduced xlstm-1.3b cut to one period (seven mLSTM blocks and an sLSTM,
+  4 heads) likewise, except its grad norm, held at 2e-3 relative, and
+  the parameters parting by lr or more, on at most 1e-4 of the elements:
+  random mLSTM blocks amplify a rounding difference block by block, and
+  the reference's own sharded step parts from its plain one by 7e-4 in
+  grad norm there (``tests/test_torch_training.py`` holds xlstm's
+  gradients at the same 2e-3, 100 times the dense archs' 2e-5, so 100
+  times as many near-zero gradients may take the other sign and move
+  their parameter 2·lr the other way under Adam's first step; measured
+  5 of 332,024 against the plain step).  Reduced granite-8b's prefill of 8 tokens and 3 decode steps on
+  (2, 2) and (1, 4), serve-mode parameters, the caches laid out by
+  ``state_shardings(phase="decode")`` (the sequence over "model"):
+  logits 1e-5 of their scale; the gathered caches within 1e-5 of their
+  scale of the plain run's and the reference's (the sharded projections
+  sum in another order, so not bitwise), with every position past the
+  written ones still zero.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -59,6 +82,13 @@ BATCHES = {0: {"tokens": (8, 16), "embeds": (6, 16, 64), "mask": (3, 16)},
 
 TRAIN_ARCH = "granite-8b"
 MOE_ARCH = "granite-moe-1b-a400m"
+# the repairs: (key, arch, layers) of the train steps on (1, 4)
+REPAIR_STEPS = (("moe14", MOE_ARCH, None), ("xlstm14", "xlstm-1.3b", 8))
+XLSTM_GRAD_TOL = 2e-3
+XLSTM_PARTED_SHARE = 1e-4
+DEC_B, DEC_S, DEC_PROMPT, DEC_STEPS = 4, 16, 8, 3
+DEC_MESHES = {"2x2": ((2, 2), ("data", "model")),
+              "1x4": ((1, 4), ("data", "model"))}
 MOE_X = (4, 16, 64)
 MOE_MESHES = {"2x2": ((2, 2), ("data", "model")),
               "4x1": ((4, 1), ("data", "model"))}
@@ -88,8 +118,10 @@ REF_SCRIPT = textwrap.dedent("""
     import numpy as np
     from jax.sharding import AxisType
 
+    import dataclasses
     from repro.configs import reduced_config
-    from repro.models import abstract_params, abstract_state, moe as M
+    from repro.models import (abstract_params, abstract_state, forward,
+                              init_state, moe as M)
     from repro.sharding import (activation_sharding, batch_shardings,
                                 opt_shardings, param_shardings,
                                 state_shardings)
@@ -191,6 +223,53 @@ REF_SCRIPT = textwrap.dedent("""
             res[key + "grad/x"] = np.asarray(gx)
             for k, g in gp.items():
                 res[key + "grad/" + k] = np.asarray(g)
+
+    # the repairs: train steps on the (1, 4) mesh
+    m14 = mesh((1, 4), ("data", "model"))
+    for key, arch, n_layers in cfgj["repair_steps"]:
+        rcfg = reduced_config(arch)
+        if n_layers:
+            rcfg = dataclasses.replace(rcfg, n_layers=n_layers)
+        rap = abstract_params(rcfg)
+        rparams = jax.tree_util.tree_map_with_path(
+            lambda p, l: jnp.asarray(data[key + "/" + path_str(p)]), rap)
+        rps = param_shardings(m14, rap)
+        rstep = make_train_step(rcfg, opt_cfg, remat=True, grad_shardings=rps)
+        with m14, activation_sharding(m14):
+            b_sh = batch_shardings(m14, jax.eval_shape(lambda: batch),
+                                   batch_dim=1)
+            rp2, _, rm = jax.jit(rstep, in_shardings=(rps, None, b_sh))(
+                rparams, init_opt_state(rparams, opt_cfg), batch)
+        res[key + "/loss"] = np.asarray(rm["loss"])
+        res[key + "/grad_norm"] = np.asarray(rm["grad_norm"])
+        for p, leaf in jax.tree_util.tree_flatten_with_path(rp2)[0]:
+            res[key + "/new/" + path_str(p)] = np.asarray(leaf)
+
+    # the repairs: prefill and decode on a sequence-sharded cache
+    db, ds = cfgj["dec_b"], cfgj["dec_s"]
+    for name, (shape, names) in cfgj["dec_meshes"].items():
+        dm = mesh(shape, names)
+        ps_s = param_shardings(dm, ap, mode="serve")
+        ss = state_shardings(dm, abstract_state(cfg, db, ds), db,
+                             phase="decode")
+
+        def dec(p, t, s, off):
+            out = forward(cfg, p, t, state=s, pos_offset=off,
+                          logits_mode="last")
+            return out.logits, out.state
+
+        st = init_state(cfg, db, ds)
+        with dm, activation_sharding(dm):
+            f = jax.jit(dec, in_shardings=(ps_s, None, ss, None))
+            lo, st = f(params, jnp.asarray(data["dec/prompt"]), st, 0)
+            res[f"dec/{name}/logits/0"] = np.asarray(lo)
+            for i, t in enumerate(data["dec/next"]):
+                lo, st = f(params, jnp.asarray(t), st,
+                           cfgj["dec_prompt"] + i)
+                res[f"dec/{name}/logits/{i + 1}"] = np.asarray(lo)
+        for j, c in enumerate(st):
+            res[f"dec/{name}/k/{j}"] = np.asarray(c.k)
+            res[f"dec/{name}/v/{j}"] = np.asarray(c.v)
     np.savez(os.path.join(out_dir, "ref.npz"), **res)
 """)
 
@@ -204,11 +283,11 @@ def _worker(rank: int, world: int, tmp: str) -> None:
     from repro_torch.checkpoint import restore, save
     from repro_torch.configs import reduced_config
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models import init_params
+    from repro_torch.models import forward, init_params, init_state
     from repro_torch.models import moe as M
     from repro_torch.sharding import (activation_sharding, batch_shardings,
                                       constrain, distribute, opt_shardings,
-                                      param_shardings)
+                                      param_shardings, state_shardings)
     from repro_torch.sharding.specs import Sharding
     from repro_torch.training import (AdamWConfig, init_opt_state,
                                       make_train_step)
@@ -217,7 +296,8 @@ def _worker(rank: int, world: int, tmp: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
                             rank=rank, world_size=world)
     meshes = {"2x2": make_debug_mesh(2, 2, device="cpu"),
-              "4x1": make_debug_mesh(4, 1, device="cpu")}
+              "4x1": make_debug_mesh(4, 1, device="cpu"),
+              "1x4": make_debug_mesh(1, 4, device="cpu")}
     data = np.load(f"{tmp}/inputs.npz")
     res = {}
 
@@ -328,6 +408,56 @@ def _worker(rank: int, world: int, tmp: str) -> None:
             res[key + "grad/x"] = full(grads[0])
             for k, g in zip(dp, grads[1:]):
                 res[key + "grad/" + k] = full(g)
+
+    # the repairs: train steps on the (1, 4) mesh, heads 2 (granite-moe)
+    # and 4 (xlstm) against a model axis of 4
+    m14 = meshes["1x4"]
+    for key, arch, n_layers in REPAIR_STEPS:
+        rcfg = reduced_config(arch)
+        if n_layers:
+            rcfg = dataclasses.replace(rcfg, n_layers=n_layers)
+        template = init_params(rcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        rparams = map_with_path(
+            lambda p, _: torch.from_numpy(data[key + "/" + p]), template)
+        ropt = init_opt_state(rparams, opt_cfg)
+        rps = param_shardings(m14, rparams)
+        with activation_sharding(m14):
+            rnew, _, rm = make_train_step(
+                rcfg, opt_cfg, remat=True, grad_shardings=rps)(
+                    distribute(rparams, rps),
+                    distribute(ropt, opt_shardings(m14, ropt, rps)),
+                    distribute(batch, batch_shardings(m14, batch,
+                                                      batch_dim=1)))
+        res[key + "/loss"] = float(rm["loss"])
+        res[key + "/grad_norm"] = float(rm["grad_norm"])
+        for p, leaf in leaves_with_path(rnew):
+            res[key + "/new/" + p] = full(leaf)
+
+    # the repairs: reduced granite-8b's prefill and decode steps with the
+    # caches' sequence over "model"
+    prompt = torch.from_numpy(data["dec/prompt"])
+    nxt = torch.from_numpy(data["dec/next"])
+    for name in DEC_MESHES:
+        dm = meshes[name]
+        sp = param_shardings(dm, params, mode="serve")
+        st = init_state(cfg, DEC_B, DEC_S, device="cpu")
+        st = distribute(st, state_shardings(dm, st, DEC_B, phase="decode"))
+        dparams = distribute(params, sp)
+        with activation_sharding(dm), torch.no_grad():
+            for i, t in enumerate([prompt] + list(nxt)):
+                dt = distribute({"t": t}, batch_shardings(dm, {"t": t}))["t"]
+                out = forward(cfg, dparams, dt, state=st,
+                              pos_offset=0 if i == 0 else DEC_PROMPT + i - 1,
+                              logits_mode="last")
+                st = out.state
+                res[f"dec/{name}/logits/{i}"] = full(out.logits)
+        for j, c in enumerate(st):
+            res[f"dec/{name}/k/{j}"] = full(c.k)
+            res[f"dec/{name}/v/{j}"] = full(c.v)
+            res[f"dec/{name}/seq_placed/{j}"] = any(
+                isinstance(pl, Shard) and pl.dim == 3
+                for pl in c.k.placements)
     if rank == 0:
         torch.save(res, f"{tmp}/port.pt")
     dist.barrier()
@@ -350,6 +480,18 @@ def _inputs(tmp: str) -> None:
     toks = rng.integers(0, cfg.vocab_size, (2, 8, 16)).astype(np.int32)
     out["train_batch/tokens"] = toks
     out["train_batch/labels"] = np.roll(toks, -1, axis=-1)
+    for key, arch, n_layers in REPAIR_STEPS:
+        rcfg = reduced_config(arch)
+        if n_layers:
+            rcfg = dataclasses.replace(rcfg, n_layers=n_layers)
+        out.update({f"{key}/{p}": leaf.numpy() for p, leaf in
+                    leaves_with_path(init_params(
+                        rcfg, torch.Generator().manual_seed(3),
+                        device="cpu"))})
+    out["dec/prompt"] = rng.integers(0, cfg.vocab_size,
+                                     (DEC_B, DEC_PROMPT)).astype(np.int32)
+    out["dec/next"] = rng.integers(0, cfg.vocab_size,
+                                   (DEC_STEPS, DEC_B, 1)).astype(np.int32)
     mcfg = reduced_config(MOE_ARCH)
     mp = M.init_moe(mcfg, torch.Generator().manual_seed(1), "cpu")
     for k, v in mp.items():
@@ -390,7 +532,9 @@ def runs():
                 "batches": {str(k): v for k, v in BATCHES.items()},
                 "train_arch": TRAIN_ARCH, "moe_arch": MOE_ARCH, "lr": LR,
                 "moe_runs": MOE_RUNS, "caps": CAPS,
-                "moe_meshes": MOE_MESHES}
+                "moe_meshes": MOE_MESHES, "repair_steps": REPAIR_STEPS,
+                "dec_b": DEC_B, "dec_s": DEC_S, "dec_prompt": DEC_PROMPT,
+                "dec_meshes": DEC_MESHES}
         popen = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                      text=True, env=env, cwd=tmp)
         ref = subprocess.Popen([sys.executable, "-c", REF_SCRIPT,
@@ -679,6 +823,137 @@ def test_moe_ep_gradients(runs, cap_name):
         print(f"ep branch, capacity {cap_name}: grad of {name} "
               f"{err / scale:.3g} of scale")
         assert err <= MOE_TOL * scale, (name, err, scale)
+
+
+def _plain_repair_step(runs, key, arch, n_layers):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.tree import leaves_with_path, map_with_path
+
+    inp = runs["inputs"]
+    cfg = reduced_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    template = init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    params = map_with_path(
+        lambda p, _: torch.from_numpy(inp[key + "/" + p]), template)
+    opt_cfg = AdamWConfig(lr=LR, warmup_steps=1, total_steps=10)
+    batch = {k: torch.from_numpy(inp["train_batch/" + k])
+             for k in ("tokens", "labels")}
+    new_p, _, m = make_train_step(cfg, opt_cfg, remat=True)(
+        params, init_opt_state(params, opt_cfg), batch)
+    return (float(m["loss"]), float(m["grad_norm"]), float(m["lr"]),
+            {p: leaf for p, leaf in leaves_with_path(new_p)})
+
+
+@pytest.mark.parametrize("against", ["plain", "reference"])
+@pytest.mark.parametrize("key,arch,n_layers", REPAIR_STEPS,
+                         ids=[k for k, _, _ in REPAIR_STEPS])
+def test_sharded_step_where_the_model_axis_does_not_divide_the_heads(
+        runs, key, arch, n_layers, against):
+    """The (1, 4) mesh: reduced granite-moe-1b-a400m (2 kv heads) and
+    reduced xlstm-1.3b cut to one period (4 heads; the mLSTM and sLSTM
+    forget gates' log-sigmoid) take the sharded train step, against the
+    port's plain step and the reference's on its (1, 4) Auto mesh.  A
+    plain head reshape raises "Cannot unflatten unevenly sharded tensor"
+    there, and DTensor has no sharding strategy for
+    ``aten.log_sigmoid_backward``."""
+    port = runs["port"]
+    loss, gnorm, lr, plain_p = _plain_repair_step(runs, key, arch, n_layers)
+    if against == "plain":
+        want = (loss, gnorm, plain_p)
+    else:
+        ref = runs["ref"]
+        pre = key + "/new/"
+        want = (float(ref[key + "/loss"]), float(ref[key + "/grad_norm"]),
+                {k[len(pre):]: v for k, v in ref.items()
+                 if k.startswith(pre)})
+    got_p = {k[len(key + "/new/"):]: v for k, v in port.items()
+             if k.startswith(key + "/new/")}
+    parted, n = _parted(got_p, want[2], lr)
+    xl = arch == "xlstm-1.3b"
+    g_tol = XLSTM_GRAD_TOL if xl else STEP_TOL
+    share = XLSTM_PARTED_SHARE if xl else PARTED_SHARE
+    print(f"{key} on (1, 4) against the {against} step: loss "
+          f"{abs(port[key + '/loss'] - want[0]) / abs(want[0]):.3g}, grad "
+          f"norm {abs(port[key + '/grad_norm'] - want[1]) / abs(want[1]):.3g}"
+          f" relative; {parted} of {n} parameters part by >= lr")
+    assert sorted(got_p) == sorted(want[2])
+    assert abs(port[key + "/loss"] - want[0]) <= STEP_TOL * abs(want[0])
+    assert abs(port[key + "/grad_norm"] - want[1]) <= g_tol * abs(want[1])
+    assert parted <= share * n, (parted, n)
+
+
+def _plain_decode(runs):
+    """Reduced granite-8b's prefill and decode steps, plain: the logits of
+    each and the caches after the last."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import forward, init_params, init_state
+    from repro_torch.tree import map_with_path
+
+    inp = runs["inputs"]
+    cfg = reduced_config(TRAIN_ARCH)
+    template = init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    params = map_with_path(
+        lambda p, _: torch.from_numpy(inp["train/" + p]), template)
+    st = init_state(cfg, DEC_B, DEC_S, device="cpu")
+    logits = []
+    steps = [inp["dec/prompt"]] + list(inp["dec/next"])
+    with torch.no_grad():
+        for i, t in enumerate(steps):
+            out = forward(cfg, params, torch.from_numpy(t), state=st,
+                          pos_offset=0 if i == 0 else DEC_PROMPT + i - 1,
+                          logits_mode="last")
+            st = out.state
+            logits.append(out.logits)
+    return logits, st
+
+
+@pytest.mark.parametrize("against", ["plain", "reference"])
+@pytest.mark.parametrize("mesh", sorted(DEC_MESHES))
+def test_sharded_decode_on_a_sequence_sharded_cache(runs, mesh, against):
+    """Reduced granite-8b on (2, 2) and (1, 4): serve-mode weights, the KV
+    caches laid out by ``state_shardings(phase="decode")`` (the sequence
+    over "model"), a prefill of 8 tokens and 3 decode steps, against the
+    port's plain run and the reference's on its Auto mesh.  Each rank
+    writes the positions of its own slice; a plain ``scatter_`` into the
+    cache raises "in-place operations that require placement changes are
+    not supported"."""
+    port = runs["port"]
+    plain_logits, plain_state = _plain_decode(runs)
+    n_steps = 1 + DEC_STEPS
+    if against == "plain":
+        want_logits = plain_logits
+        want_kv = {f"{a}/{j}": getattr(c, a) for j, c in
+                   enumerate(plain_state) for a in ("k", "v")}
+    else:
+        ref = runs["ref"]
+        want_logits = [torch.from_numpy(ref[f"dec/{mesh}/logits/{i}"])
+                       for i in range(n_steps)]
+        want_kv = {k[len(f"dec/{mesh}/"):]: torch.from_numpy(v)
+                   for k, v in ref.items()
+                   if k.startswith(f"dec/{mesh}/k/")
+                   or k.startswith(f"dec/{mesh}/v/")}
+    for i in range(n_steps):
+        got = port[f"dec/{mesh}/logits/{i}"]
+        scale = float(want_logits[i].abs().max())
+        err = float((got - want_logits[i]).abs().max())
+        print(f"decode on {mesh} against the {against} run, step {i}: "
+              f"logits {err / scale:.3g} of scale")
+        assert err <= STEP_TOL * scale, (i, err, scale)
+    written = DEC_PROMPT + DEC_STEPS
+    assert want_kv
+    for name, want in want_kv.items():
+        assert port[f"dec/{mesh}/seq_placed/{name.split('/')[1]}"]
+        got = port[f"dec/{mesh}/{name}"]
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= STEP_TOL * scale, name
+        assert not got[..., :written, :].eq(0).all()
+        assert got[..., written:, :].eq(0).all(), name
 
 
 def test_restore_onto_another_mesh(runs):
