@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DETAIL.json]
-                          [--phases all|kernels|recurrent|train|shard|dryrun]
+                          [--phases all|kernels|recurrent|train|shard|dryrun|tune]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -142,9 +142,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    the per-device peak bytes); (b) phase 12's own step (olmo-1b, 8 x 2048
    tokens in 2 microbatches, remat, a world of 1) dry-run: its predicted
    peak bytes, t_bound and t_compute beside phase 12's measured peak
-   memory and steady step.  The subprocess must not have imported
-   ``jax`` or ``repro``.
-15. A JSON line with every kernel's numbers, then the device line.
+   memory and steady step; (c) xlstm-1.3b cut to one period (8 layers,
+   full width), its sharded train step at 16 x 128 tokens (two mLSTM
+   chunks, on local shards) on the same mesh.  The subprocess must not
+   have imported ``jax`` or ``repro``.
+15. The measured loop and the analysis (run before phase 10, while
+   llama2-7b is loaded): (a) every launch variant the kernel tuner
+   chooses among — both Q4 entries, the int8 kernel's five x tiles — at
+   llama2-7b's 4 distinct (N, K) and M = 1, 4, 8 (int8 also 32): bitwise
+   equal to the default entry (Q4 within the tolerance of the plain
+   version, int8 bitwise equal to it), each variant's time per launch
+   beside its bound; (b) ``serve --machine wall --balanced-trunk
+   --tuner-cache build/tuner.json`` at full width, Q4 and int8, on the
+   main traffic's prompts prefilled in one chunk each with 16 new tokens,
+   twice from an empty cache (the eager trunk's shards on 4 worker threads, each on
+   its own CUDA stream, timed on the wall clock and tuned): the second run
+   warm-starts; each request's tokens equal those of a captured virtual
+   run of the same traffic, or part at a logit gap within the Q4
+   tolerance (reported);
+   one launch per non-empty shard; the wall decode step, the ratio spread
+   per key and each shape class's chosen variant; (c) ``--balanced-head
+   --machine wall`` the same way against a captured virtual
+   ``--balanced-head`` run; (d) ``python -m repro_torch.analysis all
+   --device cuda`` in a subprocess, exit 0 (JA001 under sync debug mode on
+   llama2-7b's captured step at full width, races over the threaded CUDA
+   dispatcher).
+16. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
@@ -152,7 +175,8 @@ a change to any kernel.  ``--phases recurrent`` runs phase 1, phase 2 at
 the recurrent archs' shapes and phase 11; ``--phases train`` runs phases
 1 and 12; ``--phases shard`` runs phases 1 and 13, (b) then timing 3
 plain steps of its own for the ratio; ``--phases dryrun`` runs phases 1
-and 14, with no phase 12 numbers beside (b).
+and 14, with no phase 12 numbers beside (b); ``--phases tune`` runs phases
+1 and 15.
 
 Every figure of the machine model that the serve lines print (TTFT,
 TPOT, ratio tables, socket splits, ``achieved_bw_frac``, GB/s of the
@@ -1055,7 +1079,8 @@ def prefill_chunk_ms(engine, init_state, init_slot_state, np_rng,
 def logit_gap(engine, init_state, a, b) -> float:
     """Where two runs' tokens for one prompt first part: |logit(token a) -
     logit(token b)| / max|logit| of the first run's context there, through
-    the engine's trunk in one prefill call."""
+    the engine's trunk (and its head, where that runs outside the step) in
+    one prefill call."""
     from repro_torch.serving import PREFILL
 
     i = next(j for j, (x, y) in enumerate(zip(a.generated, b.generated))
@@ -1065,7 +1090,7 @@ def logit_gap(engine, init_state, a, b) -> float:
     logits, _, _ = engine._run(
         torch.as_tensor(ctx[None, :], device=engine.device), state,
         torch.tensor(0, dtype=torch.int32, device=engine.device), PREFILL)
-    lg = logits[0].float()
+    lg = engine._head(logits, PREFILL)[0].float()
     return float((lg[a.generated[i]] - lg[b.generated[i]]).abs()
                  / lg.abs().max())
 
@@ -1166,11 +1191,13 @@ def balanced_head_phase(counts, serve_mod, params, q4, q4_blocks) -> dict:
         say(line)
     sampled = (len(run.requests)
                + sum(1 for it in run.iterations if it.decode_tokens))
-    want = {"q4_matmul": sum(shards), "q4_matmul_db": 0, "int8_gemm": 0}
-    if len(shards) != sampled or got != want or not run.engines[0].captured:
+    # each shard launches the Q4 entry the kernel tuner picks for it
+    q4_launched = got["q4_matmul"] + got["q4_matmul_db"]
+    if len(shards) != sampled or q4_launched != sum(shards) or \
+            got["int8_gemm"] or not run.engines[0].captured:
         raise AssertionError(f"balanced head: {len(shards)} head calls for "
                              f"{sampled} sampled steps, launches {got} "
-                             f"against {want}")
+                             f"against {sum(shards)} shards")
     head = run.engines[0].balanced_head
     x = torch.randn((DECODE_M, cfg.d_model),
                     generator=torch.Generator(device="cuda").manual_seed(4),
@@ -1181,10 +1208,12 @@ def balanced_head_phase(counts, serve_mod, params, q4, q4_blocks) -> dict:
         if not torch.equal(y, getattr(q4, name)(x, head.qw, bk)):
             raise AssertionError(f"balanced head shards != {name} bitwise")
     say(f"[smoke] balanced head (2 layers, full width): {len(shards)} head "
-        f"calls, {got['q4_matmul']} q4_matmul launches = their non-empty "
-        f"core shards ({min(shards)}-{max(shards)} per call); shards "
-        f"bitwise equal to one q4_matmul and one q4_matmul_db launch")
-    return {"head_calls": len(shards), "launches": got["q4_matmul"],
+        f"calls, {q4_launched} Q4 launches ({got['q4_matmul']} q4_matmul, "
+        f"{got['q4_matmul_db']} q4_matmul_db, the tuner's picks) = their "
+        f"non-empty core shards ({min(shards)}-{max(shards)} per call); "
+        f"shards bitwise equal to one q4_matmul and one q4_matmul_db launch")
+    return {"head_calls": len(shards), "launches": q4_launched,
+            "by_entry": {k: got[k] for k in ("q4_matmul", "q4_matmul_db")},
             "shards_per_call": [min(shards), max(shards)]}
 
 
@@ -1495,8 +1524,8 @@ def topology_eager_vs_compiled(counts, params) -> dict:
     q4 and int8, on both topologies, socket-local, and the compiled
     socket-oblivious baseline, over 4 requests: the same timelines and
     tokens; one eager launch per non-empty core shard across both sockets
-    (the direct kernel for q4); each projection kind and the head bitwise
-    equal eager against compiled."""
+    (for q4 the entry the kernel tuner picks, direct or ring); each
+    projection kind and the head bitwise equal eager against compiled."""
     from repro_torch.models import BalancedTrunk
     from repro_torch.serving import (ContinuousBatchingEngine,
                                      HybridPhaseCost, poisson_requests)
@@ -1508,7 +1537,8 @@ def topology_eager_vs_compiled(counts, params) -> dict:
     xff = torch.randn((DECODE_M, cfg.d_ff), generator=gen, device="cuda")
     kinds = (("attn_proj", "attn", "wq", x), ("mlp_up", "ffn", "wi", x),
              ("mlp_down", "ffn", "wo", xff))
-    eager_kernel = {"q4": "q4_matmul", "int8": "int8_gemm"}
+    eager_kernel = {"q4": ("q4_matmul", "q4_matmul_db"),
+                    "int8": ("int8_gemm",)}
     res, launches = {}, {}
     for quant in ("q4", "int8"):
         for topology in ("dual-125h", "2s-12900k"):
@@ -1554,11 +1584,13 @@ def topology_eager_vs_compiled(counts, params) -> dict:
                     raise AssertionError(f"{quant} {topology}: oblivious "
                                          f"tokens of request {a.request_id} "
                                          f"differ from socket-local")
-            want = {k: 0 for k in le}
-            want[eager_kernel[quant]] = n_shards
-            if le != want or not n_shards:
+            mine = sum(le[k] for k in eager_kernel[quant])
+            others = sum(n for k, n in le.items()
+                         if k not in eager_kernel[quant])
+            if mine != n_shards or others or not n_shards:
                 raise AssertionError(f"{quant} {topology} eager launches "
-                                     f"{le}, expected {want}")
+                                     f"{le}, expected {n_shards} of "
+                                     f"{eager_kernel[quant]}")
             offs = tc.compiled_refresh()
             pairs = {kind: (te.projector(0, 1, group, "membw")(name, xin,
                                                                None),
@@ -1574,7 +1606,8 @@ def topology_eager_vs_compiled(counts, params) -> dict:
                                          f"!= compiled bitwise ({rel})")
             say(f"[smoke] {quant} {topology} eager vs compiled (2 layers, "
                 f"full width, 4 requests): timelines and tokens equal, "
-                f"{n_shards} {eager_kernel[quant]} launches = the non-empty "
+                f"{n_shards} {'+'.join(eager_kernel[quant])} launches "
+                f"({le}) = the non-empty "
                 f"core shards of both sockets, every projection kind and "
                 f"the head bitwise equal; socket-oblivious tokens equal "
                 f"[{time.perf_counter() - t0:.1f} s]")
@@ -2616,6 +2649,16 @@ roof.update(mesh_shape=list(mesh.shape), trace_seconds=got["trace_seconds"],
 out["cell"] = {k: roof[k] for k in SUMMARY_KEYS + ("t_bound",
                                                    "collectives_issued",
                                                    "collective_ops")}
+# (c) xlstm-1.3b cut to one period (8 layers, full width), its sharded
+# train step on the same mesh at 16 x 128 tokens, two mLSTM chunks: the
+# chunk on local shards (DTensor's own view of it raised on torch 2.11)
+import dataclasses
+xl = trace_cell(dataclasses.replace(get_config("xlstm-1.3b"), n_layers=8),
+                ShapeSpec("train_16x128", "train", 128, 16), mesh,
+                arch="xlstm-1.3b", n_micro=1)
+out["xlstm_probe"] = {"trace_seconds": xl["trace_seconds"],
+                      "collective_ops": xl["roofline"].collective_ops,
+                      "peak_mem_bytes": xl["roofline"].peak_mem_bytes}
 # (b) phase 12's step: olmo-1b, 8 x 2048 tokens in 2 microbatches, remat,
 # plain on one device
 t0 = time.perf_counter()
@@ -2696,6 +2739,12 @@ def dryrun_phase(run: DryRun, phase12=None) -> dict:
             raise AssertionError(f"dry run {what}: {v}")
     say("[smoke] dry run, olmo-1b x train_4k on the 16x16 mesh (fake world "
         "of 256 ranks, meta tensors): " + json.dumps(cell))
+    xl = out["xlstm_probe"]
+    say(f"[smoke] dry run, xlstm-1.3b cut to 8 layers, sharded train step "
+        f"at 16 x 128 tokens (2 mLSTM chunks) on the 16x16 mesh: traced in "
+        f"{xl['trace_seconds']:.1f} s on torch {torch.__version__}, "
+        f"collectives {xl['collective_ops']}, peak "
+        f"{xl['peak_mem_bytes'] / 2**30:.2f} GiB a card")
     measured = ""
     if phase12 is not None:
         out["phase12_measured"] = phase12
@@ -2722,13 +2771,297 @@ def dryrun_phase(run: DryRun, phase12=None) -> dict:
     return out
 
 
+# --------------------------------------- the measured loop, the analysis --
+TUNE_M = {"q4": (1, DECODE_M, 8), "int8": (1, DECODE_M, 8, 32)}
+# where the wall-clock serving runs keep their kernel-tuner cache
+TUNER_CACHE = Path(__file__).resolve().parent / "build" / "tuner.json"
+# the wall-clock runs' traffic: the main traffic's 8 requests and 64-token
+# prompts, each prefilled in one chunk, 16 new tokens; an eager step takes
+# ~0.25-0.4 s (PERF.md), so the main traffic's 64 prefill chunks would
+# take most of a minute a run.  Their captured virtual run serves the same
+# traffic: the cache's length and the prefill chunks set the shapes of the
+# plain ops, and so their bits.
+WALL_TRAFFIC = {"--prefill-chunk": "64", "--steps": "16"}
+ANALYSIS_TIMEOUT_S = 600
+
+
+def variants_vs_default(q4, i8, quantize, q4_blocks) -> dict:
+    """Phase 15 (a): every launch variant the kernel tuner chooses among,
+    at llama2-7b's 4 distinct (N, K) (q/k/v/o; up and gate; down; head)
+    and M = 1, 4, 8 (int8 also 32), f32 x for Q4: bitwise equal to the
+    default entry (``q4_matmul``; ``int8_gemm``, which picks its x tile
+    from M), Q4 within the reference's tolerance of the plain version and
+    int8 bitwise equal to it; each variant's time per launch (CUDA events
+    over 200 launches, weights rotated past the L2) beside its bound."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    for label, n, k, per_step in SHAPES:
+        bk = q4_blocks(k)[2]
+        qw = quantize(torch.randn((n, k), generator=gen, device="cuda"))
+        copies = max(2, math.ceil(2 * L2_BYTES / qw.nbytes))
+        qbanks = [type(qw)(qw.packed.clone(), qw.scales.clone())
+                  for _ in range(copies)]
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.int8)
+        wbanks = [w.clone() for _ in range(max(2, math.ceil(
+            2 * L2_BYTES / w.numel())))]
+        for m in TUNE_M["q4"]:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            want = q4.q4_matmul(x, qw, bk)
+            plain = q4.q4_matmul_plain(x, qw, bk)
+            if not torch.allclose(want, plain, rtol=F32_TOL, atol=F32_TOL * k):
+                raise AssertionError(f"q4_matmul vs plain at {label} M={m}")
+            for v in ops.Q4_CANDIDATES:
+                got = ops.q4_variant(x, qw, v)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"Q4 variant {v} != q4_matmul "
+                                         f"bitwise at {label} M={m}")
+                t = device_ms(lambda x, b, v=v: ops.q4_variant(x, b, v),
+                              [(x, b) for b in qbanks], 200)
+                bnd, by = bound_ms(m, n, k)
+                rows.append({"kernel": "q4", "variant": list(v),
+                             "shape": label, "n": n, "k": k, "m": m,
+                             "per_decode_step": per_step, "ms": t,
+                             "bound_ms": bnd, "bound_by": by})
+        for m in TUNE_M["int8"]:
+            a = torch.randint(0, 256, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int32).to(torch.uint8)
+            want = i8.int8_gemm(a, w)
+            if not torch.equal(want, i8.int8_gemm_plain(a, w)):
+                raise AssertionError(f"int8_gemm != plain at {label} M={m}")
+            for v in ops.INT8_CANDIDATES:
+                if not torch.equal(i8.int8_gemm(a, w, variant=v), want):
+                    raise AssertionError(f"int8 variant {v} != int8_gemm "
+                                         f"bitwise at {label} M={m}")
+                t = device_ms(lambda a, b, v=v: i8.int8_gemm(a, b, variant=v),
+                              [(a, b) for b in wbanks], 200)
+                bnd, by = i8_bound_ms(m, n, k)
+                rows.append({"kernel": "int8", "variant": list(v),
+                             "shape": label, "n": n, "k": k, "m": m,
+                             "per_decode_step": per_step, "ms": t,
+                             "bound_ms": bnd, "bound_by": by})
+        del qbanks, wbanks, qw, w
+    torch.cuda.empty_cache()
+    for kernel in ("q4", "int8"):
+        for m in TUNE_M[kernel]:
+            per = {}
+            for r in rows:
+                if r["kernel"] == kernel and r["m"] == m:
+                    key = tuple(r["variant"])
+                    per[key] = per.get(key, 0.0) + r["ms"] * r["per_decode_step"]
+            bnd = sum(r["bound_ms"] * r["per_decode_step"] for r in rows
+                      if r["kernel"] == kernel and r["m"] == m
+                      and tuple(r["variant"]) == next(iter(per)))
+            say(f"[smoke] {kernel} variants per decode step (225 launches) "
+                f"at M={m}: " + ", ".join(
+                    f"{'/'.join(map(str, v))} {t:.3f} ms" for v, t in
+                    per.items()) + f"; bound {bnd:.3f} ms; every variant "
+                f"bitwise equal to the default entry")
+    for r in rows:
+        say(f"[smoke]   {r['kernel']:4s} {'/'.join(map(str, r['variant'])):7s}"
+            f" {r['shape']:11s} M={r['m']:2d} {r['ms'] * 1e3:8.2f} us  "
+            f"bound {r['bound_ms'] * 1e3:6.2f} us ({r['bound_by']})")
+    return {"rows": rows}
+
+
+class RegionShards:
+    """Non-empty core shards of every region any flat dispatcher runs
+    (one kernel launch each), counted by wrapping the class's ``dispatch``
+    while a serving run builds and runs its own dispatchers."""
+
+    def __init__(self):
+        from repro_torch.kernels.dispatch import HybridKernelDispatcher
+
+        self.cls, self.n = HybridKernelDispatcher, 0
+        self.plain = HybridKernelDispatcher.dispatch
+
+        def counted(disp, *a, **k):
+            st = self.plain(disp, *a, **k)
+            self.n += int((st.counts > 0).sum())
+            return st
+        self.cls.dispatch = counted
+
+    def remove(self) -> None:
+        self.cls.dispatch = self.plain
+
+
+def tuner_lines(run) -> dict:
+    """Each shape class's chosen variant (the tuner's EMA argmin) and each
+    ratio-table key's spread, of a wall-clock serving run."""
+    tuner, table = run.tuner, run.dispatchers[0].table
+    chosen = {}
+    for key, tab in sorted(tuner._tables.items()):
+        best = min(tab, key=lambda c: tab[c].ema)
+        chosen[f"{key[0]} {'x'.join(map(str, key[1]))}"] = {
+            "variant": list(best), "trials": {"/".join(map(str, c)): e.count
+                                              for c, e in tab.items()},
+            "ema_us": {"/".join(map(str, c)): e.ema * 1e6
+                       for c, e in tab.items()}}
+    spread = {key: float(table.ratios(key).max() / table.ratios(key).min())
+              for key in table.keys()}
+    return {"chosen": chosen, "spread": spread}
+
+
+def serve_wall(counts, serve_mod, params, mode: str, quant: str,
+               init_state, Request, np_rng) -> dict:
+    """Phase 15 (b, c) at full width on WALL_TRAFFIC: first the captured
+    virtual run, then ``serve --machine wall --tuner-cache`` twice from an
+    empty cache: ``mode`` "trunk" (``--balanced-trunk --trunk-quant
+    quant``: an eager trunk over the threaded dispatcher of 4 workers) or
+    "head" (``--balanced-head``: the captured dense step, the head over
+    the threaded dispatcher).  The second run warm-starts from the first's
+    cache.  Each request's tokens against the captured virtual run's: a
+    request whose tokens part must part within Q4_VS_PLAIN_TOL of max
+    |logit| (reported).  One launch per non-empty core shard, of the
+    tuner's picks.  Then the wall decode step of the second run (trunk),
+    its ratio spread per key and each shape class's chosen variant."""
+    argv = list(SERVE_ARGV)
+    argv[argv.index("--trunk-quant") + 1] = quant
+    for flag, value in WALL_TRAFFIC.items():
+        argv[argv.index(flag) + 1] = value
+    if mode == "head":
+        argv.remove("--balanced-trunk")
+        argv.append("--balanced-head")
+    captured = serve_mod.serve(serve_mod.build_parser().parse_args(argv),
+                               params=params)
+    if not captured.engines[0].captured:
+        raise AssertionError(f"the virtual {mode} run is not captured")
+    argv[argv.index("--machine") + 1] = "wall"
+    argv += ["--tuner-cache", str(TUNER_CACHE)]
+    TUNER_CACHE.unlink(missing_ok=True)
+    kernels = (("int8_gemm",) if quant == "int8" and mode == "trunk"
+               else ("q4_matmul", "q4_matmul_db"))
+    label = f"wall {mode} {quant if mode == 'trunk' else 'q4 head'}"
+    want = {r.request_id: r for r in captured.requests}
+    out = {"runs": []}
+    for i in range(2):
+        args = serve_mod.build_parser().parse_args(argv)
+        shards = RegionShards()
+        counts.reset()
+        t0 = time.perf_counter()
+        try:
+            run = serve_mod.serve(args, params=params)
+            torch.cuda.synchronize()
+            got = counts.read()
+        finally:
+            shards.remove()
+        wall = time.perf_counter() - t0
+        lines = serve_mod.report_lines(args, run)
+        for line in lines:
+            say(line)
+        warm = any("warm-started kernel tuner" in ln for ln in lines)
+        if warm != (i == 1):
+            raise AssertionError(f"{label} run {i + 1}: warm start {warm}")
+        mine = sum(got[k] for k in kernels)
+        if mine != shards.n or not mine or \
+                any(n for k, n in got.items() if k not in kernels):
+            raise AssertionError(f"{label}: launches {got} against "
+                                 f"{shards.n} non-empty shards")
+        gaps = {r.request_id: logit_gap(run.engines[0], init_state,
+                                        want[r.request_id], r)
+                for r in run.requests
+                if r.generated != want[r.request_id].generated}
+        if any(g > Q4_VS_PLAIN_TOL for g in gaps.values()):
+            raise AssertionError(f"{label}: tokens part from the captured "
+                                 f"virtual run's beyond a near-tie: {gaps}")
+        say(f"[smoke] {label} run {i + 1}: {got} launches = {shards.n} "
+            f"non-empty shards; tokens equal the captured virtual run's: "
+            f"{not gaps}" + (f" (logit gaps where they part: {gaps})"
+                             if gaps else "")
+            + f"; warm start {warm}; serve wall {wall:.1f} s")
+        out["runs"].append({"launches": got, "shards": shards.n,
+                            "tokens_equal": not gaps, "logit_gaps": gaps,
+                            "warm_start": warm, "serve_wall_s": wall})
+        if i == 0:
+            for d in run.dispatchers:   # their worker threads
+                d.close()
+    if mode == "trunk":
+        out["decode"] = decode_wall(run, Request, np_rng, label)
+    out.update(tuner_lines(run))
+    say(f"[smoke] {label}: ratio spread per key " + json.dumps(
+        {k: round(v, 3) for k, v in out["spread"].items()}))
+    say(f"[smoke] {label}: chosen variant per shape class " + json.dumps(
+        {k: "/".join(map(str, v["variant"])) for k, v in
+         out["chosen"].items()}))
+    for d in run.dispatchers:
+        d.close()
+    del run, captured
+    torch.cuda.empty_cache()
+    return out
+
+
+def analysis_cli() -> dict:
+    """Phase 15 (d): ``python -m repro_torch.analysis all --device cuda``
+    in a subprocess: lint, the step audit (JA001 under sync debug mode on
+    reduced granite-8b and on llama2-7b's captured step at full width),
+    races over the threaded CUDA dispatcher, the invariants; exit 0."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "all", "--device",
+         "cuda", "--root", str(root / "src" / "repro_torch")],
+        capture_output=True, text=True, env=env, cwd=root,
+        timeout=ANALYSIS_TIMEOUT_S)
+    for line in proc.stderr.splitlines() + proc.stdout.splitlines():
+        say(f"[smoke]   {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m repro_torch.analysis all exited "
+                             f"{proc.returncode}")
+    wall = time.perf_counter() - t0
+    say(f"[smoke] python -m repro_torch.analysis all --device cuda: exit 0 "
+        f"[{wall:.1f} s]")
+    return {"rc": proc.returncode, "wall_s": wall,
+            "summary": proc.stdout.strip().splitlines()[-1]}
+
+
+def tune_phase(counts, serve_mod, params, q4, i8, quantize, q4_blocks,
+               init_state, Request, np_rng) -> dict:
+    """Phase 15, the measured loop and the analysis: (a) every launch
+    variant against the default entry; (b) ``--machine wall
+    --balanced-trunk`` twice with a tuner cache, Q4 and int8; (c)
+    ``--balanced-head --machine wall`` the same way; each against a
+    captured virtual run of the same traffic; (d) the analysis CLI on the
+    card."""
+    t0 = time.perf_counter()
+    out = {"variants": variants_vs_default(q4, i8, quantize, q4_blocks)}
+    for mode, quant in (("trunk", "q4"), ("trunk", "int8"), ("head", "q4")):
+        key = f"wall {mode} {quant}" if mode == "trunk" else "wall head"
+        out[key] = serve_wall(counts, serve_mod, params, mode, quant,
+                              init_state, Request, np_rng)
+    out["analysis"] = analysis_cli()
+    TUNER_CACHE.unlink(missing_ok=True)
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[smoke] the measured loop and the analysis: {out['wall_s']:.1f} s")
+    return out
+
+
+def variant_steps(tune: dict, kernel: str) -> dict:
+    """Each launch variant's time per decode step's worth of launches (225
+    at M = 4) and its bound, from phase 15 (a)."""
+    out = {}
+    for r in tune["variants"]["rows"]:
+        if r["kernel"] == kernel and r["m"] == DECODE_M:
+            v = out.setdefault("/".join(map(str, r["variant"])),
+                               {"ms": 0.0, "bound_ms": 0.0})
+            v["ms"] += r["ms"] * r["per_decode_step"]
+            v["bound_ms"] += r["bound_ms"] * r["per_decode_step"]
+    return out
+
+
 def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
-                   i8_launches: int, paths: dict) -> list:
+                   i8_launches: int, paths: dict, tune: dict) -> list:
     """One entry per kernel: ``launches`` from its own path's serving run,
     ``paths`` its launches on every other path that drives it (each run
     with the counts set to 0 just before and read just after); ``ms``,
     ``plain_ms`` and ``bound_ms`` for one decode step's worth of its
-    launches (225 at the main path's shapes, M = 4; f32 x for Q4)."""
+    launches (225 at the main path's shapes, M = 4; f32 x for Q4);
+    ``variants`` the same step's time through each launch variant the
+    kernel tuner chooses among (phase 15)."""
+    q4_variants = variant_steps(tune, "q4")
     rows = [r for r in phase2["rows"]
             if r["m"] == DECODE_M and r["dtype"] == "float32"]
     per = (f"decode step: {sum(r['per_decode_step'] for r in rows)} "
@@ -2749,7 +3082,10 @@ def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
             "max_abs_err": phase2["max_abs_err"], "ms": ms,
             "plain_ms": plain, "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "per": per, "paths": paths[name]})
+            "library_ms": None, "per": per, "paths": paths[name],
+            "variants": {k: v for k, v in q4_variants.items()
+                         if k == {"q4_matmul": "direct",
+                                  "q4_matmul_db": "ring"}[name]}})
 
     def step_sum(m, key):
         return sum(r[key] * r["per_decode_step"] for r in p2i8["rows"]
@@ -2772,6 +3108,7 @@ def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
         # product at the serving path's M <= 8; at M = 32 and 64 it stands
         # below
         "library_ms": None, "per": per, "paths": paths["int8_gemm"],
+        "variants": variant_steps(tune, "int8"),
         **{f"at_m{m}": {"ms": step_sum(m, "int8_gemm_ms"),
                         "library_ms": step_sum(m, "library_ms"),
                         "library": "torch._int_mm on a - 128, + 128 * colsum"}
@@ -2785,7 +3122,7 @@ def main(argv=None) -> int:
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases",
                     choices=("all", "kernels", "recurrent", "train",
-                             "shard", "dryrun"),
+                             "shard", "dryrun", "tune"),
                     default="all",
                     help="kernels: only the header and every kernel "
                          "against its plain version, with times (a quick "
@@ -2793,7 +3130,8 @@ def main(argv=None) -> int:
                          "the kernels at the recurrent archs' shapes and "
                          "phase 11; train: the header and phase 12; shard: "
                          "the header and phase 13; dryrun: the header and "
-                         "phase 14; all (default): every phase")
+                         "phase 14; tune: the header and phase 15; all "
+                         "(default): every phase")
     args = ap.parse_args(argv)
     # the resume check runs under deterministic algorithms, whose cuBLAS
     # calls need this set before CUDA initialises (on Hopper it is the
@@ -2848,6 +3186,21 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(
                 {"card": head["card"], "build_s": head["build_s"],
                  "dryrun": dry}, indent=1))
+        say(device_line())
+        return 0
+    if args.phases == "tune":
+        cfg, device, params = serve_mod.setup(
+            serve_mod.build_parser().parse_args(SERVE_ARGV))
+        tune = tune_phase(counts, serve_mod, params, q4, i8, quantize_q4_0,
+                          q4_blocks, init_state, Request,
+                          np.random.default_rng(0))
+        say(f"[smoke] tune only: {time.perf_counter() - t_all:.1f} s on "
+            f"{head['card']}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": head["card"], "build_s": head["build_s"],
+                 "tune": tune}, indent=1))
         say(device_line())
         return 0
     if args.phases == "recurrent":
@@ -2920,6 +3273,9 @@ def main(argv=None) -> int:
                 INT8_VS_PLAIN_TOL, forward, init_state, Request, np_rng)}
     topo_eager = topology_eager_vs_compiled(counts, params)
     fleet = fleet_phase(serve_mod, params)
+    torch.cuda.empty_cache()
+    tune = tune_phase(counts, serve_mod, params, q4, i8, quantize_q4_0,
+                      q4_blocks, init_state, Request, np_rng)
     reports = {"q4": phase3["run"].report.to_dict(),
                "int8": p3i8["run"].report.to_dict()}
     # llama2-7b's weights and engines go before the zoo's
@@ -2962,8 +3318,13 @@ def main(argv=None) -> int:
     for name, quant in (("q4_matmul_db", "q4"), ("int8_gemm", "int8")):
         paths[name][f"{arch} ({n_cut} layers, prefill + decode)"] = \
             rec[arch][quant]["launches"][name]
+    for mode in ("wall trunk q4", "wall trunk int8", "wall head"):
+        for name, n in tune[mode]["runs"][0]["launches"].items():
+            if n:
+                paths[name][f"{mode} (eager shards over 4 threads, tuned, "
+                            f"each run)"] = n
     entries = kernel_entries(phase2, phase3["launches"], p2i8,
-                             p3i8["launches"], paths)
+                             p3i8["launches"], paths, tune)
     say(f"[smoke] total {time.perf_counter() - t_all:.1f} s on {head['card']}")
     if args.out:
         detail = {"card": head["card"], "build_s": head["build_s"],
@@ -2990,7 +3351,8 @@ def main(argv=None) -> int:
                   "topology_eager_vs_compiled": topo_eager["runs"],
                   "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
                   "recurrent": rec, "recurrent_kernels": p2rec,
-                  "train": trained, "shard": sharded, "dryrun": dry}
+                  "train": trained, "shard": sharded, "dryrun": dry,
+                  "tune": tune}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

@@ -71,8 +71,14 @@
 //
 // Launch: grid (ceil(N / (16 kMT)), ceil(M / (8 kNT))), 256 threads,
 // dynamic shared memory for the ring.  The kernels allocate nothing and
-// run on the stream they are given.  The C entry returns
+// run on the stream they are given.  The C entries return
 // cudaGetLastError().  Times against the bounds: PERF.md.
+//
+// Launch variants.  int8_gemm picks the instantiation from M (above);
+// int8_gemm_variant launches the one named by (kNT, kMT, kStages),
+// whatever M is: the five instantiations this file compiles are the
+// candidates the port's kernel tuner chooses among for an eager shard.
+// Every one sums the same exact s32 products, so all give the same bits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -350,6 +356,22 @@ int8_gemm_bytes_kernel(const uint8_t* __restrict__ a,
   }
 }
 
+// The operands the vector kernel takes: K a multiple of 16, a and w
+// 16-byte aligned; anything else takes the bytes kernel.
+bool vector_ok(const void* a, const void* w, int K) {
+  return K % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+cudaError_t launch_bytes(const uint8_t* a, const int8_t* w, int32_t* out,
+                         int M, int N, int K, int ldc, cudaStream_t stream) {
+  const dim3 grid((N + kBytesRows - 1) / kBytesRows,
+                  (M + kBytesMTile - 1) / kBytesMTile);
+  int8_gemm_bytes_kernel<<<grid, kThreads, 0, stream>>>(a, w, out, M, N, K,
+                                                        ldc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -366,15 +388,8 @@ int int8_gemm(const void* a, const void* w, void* out, int M, int N, int K,
   const uint8_t* at = static_cast<const uint8_t*>(a);
   const int8_t* wt = static_cast<const int8_t*>(w);
   int32_t* ot = static_cast<int32_t*>(out);
-  const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if (!vec) {
-    const dim3 grid((N + kBytesRows - 1) / kBytesRows,
-                    (M + kBytesMTile - 1) / kBytesMTile);
-    int8_gemm_bytes_kernel<<<grid, kThreads, 0, s>>>(at, wt, ot, M, N, K,
-                                                     ldc);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (!vector_ok(a, w, K))
+    return static_cast<int>(launch_bytes(at, wt, ot, M, N, K, ldc, s));
   cudaError_t e;
   if (M <= 8)
     e = launch_mma<1, kMtSmall, kStagesSmall>(at, wt, ot, M, N, K, ldc, s);
@@ -386,6 +401,42 @@ int int8_gemm(const void* a, const void* w, void* out, int M, int N, int K,
     e = launch_mma<8, kMtLarge, kStagesLarge>(at, wt, ot, M, N, K, ldc, s);
   else
     e = launch_mma<8, kMtWide, kStagesLarge>(at, wt, ot, M, N, K, ldc, s);
+  return static_cast<int>(e);
+}
+
+// The same product through the instantiation (kNT, kMT, kStages) = (nt,
+// mt, stages), one of the five int8_gemm chooses among, at any M (the
+// operands the vector kernel does not take still go to the bytes
+// kernel).  Returns cudaErrorInvalidValue for a tuple that is not
+// compiled.
+int int8_gemm_variant(const void* a, const void* w, void* out, int M, int N,
+                      int K, int ldc, int nt, int mt, int stages,
+                      void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || ldc < N || M > kMaxM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* at = static_cast<const uint8_t*>(a);
+  const int8_t* wt = static_cast<const int8_t*>(w);
+  int32_t* ot = static_cast<int32_t*>(out);
+  const bool small = nt == 1 && mt == kMtSmall && stages == kStagesSmall;
+  const bool large = mt == kMtLarge && stages == kStagesLarge &&
+                     (nt == 2 || nt == 4 || nt == 8);
+  const bool wide = nt == 8 && mt == kMtWide && stages == kStagesLarge;
+  if (!small && !large && !wide)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!vector_ok(a, w, K))
+    return static_cast<int>(launch_bytes(at, wt, ot, M, N, K, ldc, s));
+  cudaError_t e;
+  if (small)
+    e = launch_mma<1, kMtSmall, kStagesSmall>(at, wt, ot, M, N, K, ldc, s);
+  else if (wide)
+    e = launch_mma<8, kMtWide, kStagesLarge>(at, wt, ot, M, N, K, ldc, s);
+  else if (nt == 2)
+    e = launch_mma<2, kMtLarge, kStagesLarge>(at, wt, ot, M, N, K, ldc, s);
+  else if (nt == 4)
+    e = launch_mma<4, kMtLarge, kStagesLarge>(at, wt, ot, M, N, K, ldc, s);
+  else
+    e = launch_mma<8, kMtLarge, kStagesLarge>(at, wt, ot, M, N, K, ldc, s);
   return static_cast<int>(e);
 }
 

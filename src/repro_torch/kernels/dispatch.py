@@ -6,8 +6,8 @@ The paper's runtime splits every GEMM/GEMV along its N dimension into one
 
     RatioTable["avx_vnni" | "membw"]  --Eq.3-->  per-core N shards
          ^                                           |
-         |                                      virtual worker pool runs
-         +------------- Eq.2 + EMA <----------- the real kernel shard
+         |                                      worker pool runs the real
+         +------------- Eq.2 + EMA <----------- kernel shard
 
 :class:`HybridKernelDispatcher` owns that loop for any caller:
 
@@ -21,11 +21,28 @@ The paper's runtime splits every GEMM/GEMV along its N dimension into one
   worker's columns of one preallocated output on the device (no host
   round trip and no copy per shard; zero-width shards launch nothing).
 
-Shard times come from the simulated hybrid CPU (the virtual pools), so no
-shard is timed on the wall clock.  The reference's per-shard block tuner
-is not ported: Q4 shards run at :func:`~repro_torch.kernels.ops.q4_blocks`,
-the compiled lowering's blocks, so eager and compiled Q4 outputs are
-bitwise equal.
+Two pools run the shards.  :meth:`HybridKernelDispatcher.virtual` runs
+them in turn on the caller's thread and takes their times from the
+simulated hybrid CPU; :meth:`HybridKernelDispatcher.threaded` runs them
+on persistent OS threads, one per worker, and the pool times each worker
+on the wall clock: the paper's measure → EMA → split loop on real
+hardware.  On the card a threaded shard runs on a CUDA stream of its own
+worker, which first waits for the caller's stream (where x was made);
+the worker synchronizes its stream before it returns, so its time covers
+the kernel, and after the region the caller's stream waits for every
+worker stream.  A threaded region emits no span on the virtual clock.
+
+Per-shard launch variants: each eager Q4 or int8 shard asks the
+dispatcher's :class:`~repro_torch.core.tuner.KernelTuner` for a variant
+(:data:`~repro_torch.kernels.ops.Q4_CANDIDATES`,
+:data:`~repro_torch.kernels.ops.INT8_CANDIDATES`) under
+``(kernel, shape_class(m, shard rows, k))``, launches it, times it
+(:func:`~repro_torch.kernels.ops.time_call`) and reports the time,
+unless the caller pins the variant (``variant=``).  Every variant gives
+the same bits, so eager and compiled outputs stay bitwise equal whatever
+the tuner picks.  The Q4 shards run at
+:func:`~repro_torch.kernels.ops.q4_blocks`, the compiled lowering's
+blocks.
 
 Primary-ISA keying follows the paper: compute-bound prefill GEMMs dispatch
 under ``"avx_vnni"``, memory-bound decode GEMVs under ``"membw"``, and the
@@ -43,7 +60,8 @@ import torch
 
 from repro_torch.core import events as _ev
 from repro_torch.core.hybrid_sim import SimulatedHybridCPU, make_machine
-from repro_torch.core.pool import SubTask, VirtualWorkerPool
+from repro_torch.core.pool import SubTask, ThreadWorkerPool, VirtualWorkerPool
+from repro_torch.core.tuner import KernelTuner, shape_class
 from repro_torch.quant.q4 import BYTES_PER_ELEM, QuantizedLinear
 from repro_torch.runtime import (
     Balancer,
@@ -77,13 +95,34 @@ def kernel_key(isa: str, kind: Optional[str] = None) -> str:
     return isa if kind is None else f"{isa}/{kind}"
 
 
+class _WorkerStreams:
+    """The CUDA stream of each worker thread of a threaded dispatcher,
+    made on the thread's first shard and kept for the pool's life."""
+
+    def __init__(self):
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self.streams: list = []
+
+    def stream(self, device: torch.device):
+        s = getattr(self._local, "stream", None)
+        if s is None:
+            s = torch.cuda.Stream(device)
+            self._local.stream = s
+            with self._lock:
+                self.streams.append(s)
+        return s
+
+
 class HybridKernelDispatcher:
     """Per-core balanced dispatch of kernel parallel regions.
 
     Construct via :meth:`virtual` (deterministic hybrid-CPU model, one
-    :class:`VirtualWorkerPool` per ISA over a shared machine).  One
+    :class:`VirtualWorkerPool` per ISA over a shared machine) or
+    :meth:`threaded` (real OS threads with wall-clock shard times).  One
     dispatcher owns one :class:`RatioTable` keyed by primary ISA (refined
-    per layer kind) and running bytes/busy-seconds accounting per ISA for
+    per layer kind), one :class:`KernelTuner` for per-shard launch
+    variants, and running bytes/busy-seconds accounting per ISA for
     achieved-bandwidth fractions.
 
     ``dynamic=False`` turns the dispatcher into the OpenMP-balanced static
@@ -94,6 +133,7 @@ class HybridKernelDispatcher:
     def __init__(self, pool_factory: Callable[[str], object], n_workers: int,
                  *, machine: Optional[SimulatedHybridCPU] = None,
                  table: Optional[RatioTable] = None, alpha: float = 0.3,
+                 tuner: Optional[KernelTuner] = None,
                  sink: Optional[StatsSink] = None, dynamic: bool = True,
                  keep_stats: bool = True):
         self.n_workers = n_workers
@@ -101,6 +141,7 @@ class HybridKernelDispatcher:
         self.table = table or RatioTable(n_workers, alpha=alpha)
         if self.table.n_workers != n_workers:
             raise ValueError("table size does not match worker count")
+        self.tuner = tuner or KernelTuner()
         self.sink = sink
         self.dynamic = dynamic
         self.keep_stats = keep_stats
@@ -117,6 +158,7 @@ class HybridKernelDispatcher:
         # bytes/busy accounting is a read-modify-write on plain dicts;
         # reports may arrive from concurrent regions, so it is locked
         self._acct_lock = threading.Lock()
+        self._streams: Optional[_WorkerStreams] = None   # threaded only
 
     # ------------------------------------------------------- constructors --
     @classmethod
@@ -130,6 +172,16 @@ class HybridKernelDispatcher:
         return cls(
             lambda isa: VirtualWorkerPool(machine, isa=isa, execute=execute),
             machine.n_cores, machine=machine, **kwargs)
+
+    @classmethod
+    def threaded(cls, n_workers: int, **kwargs):
+        """Dispatcher over one persistent OS-thread pool (wall-clock shard
+        times; the ISA only keys the ratio table).  On the card each
+        worker launches on a CUDA stream of its own."""
+        pool = ThreadWorkerPool(n_workers)
+        d = cls(lambda isa: pool, n_workers, **kwargs)
+        d._streams = _WorkerStreams()
+        return d
 
     def close(self) -> None:
         for pool in {id(p): p for p in self._pools.values()}.values():
@@ -279,67 +331,118 @@ class HybridKernelDispatcher:
                 "(construct with execute=True), so kernel outputs would be "
                 "missing; use dispatch() for purely modelled regions")
 
-    @staticmethod
-    def _shard_fn(run_shard: Callable[[int, int, torch.Tensor], None],
+    def _on_workers(self, fn: Callable[[int, int], None],
+                    device: torch.device) -> Callable[[int, int], None]:
+        """``fn`` as a threaded dispatcher's worker runs it on the card: on
+        the worker's own stream, after the caller's stream has reached
+        this point, synchronized before the worker returns (so the pool's
+        wall time covers the kernel).  Unchanged elsewhere."""
+        if self._streams is None or device.type != "cuda":
+            return fn
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(device))
+
+        def run(start: int, size: int) -> None:
+            s = self._streams.stream(device)
+            with torch.cuda.device(device), torch.cuda.stream(s):
+                s.wait_event(ready)
+                fn(start, size)
+            s.synchronize()
+        return run
+
+    def _run_shards(self, spec: KernelSpec, total: int,
+                    fn: Callable[[int, int], None], device: torch.device,
+                    **kwargs) -> None:
+        """One region of real shards (:meth:`dispatch`); after a threaded
+        region on the card the caller's stream waits for every worker
+        stream."""
+        self.dispatch(spec, total, self._on_workers(fn, device), **kwargs)
+        if self._streams is not None and device.type == "cuda":
+            caller = torch.cuda.current_stream(device)
+            for s in self._streams.streams:
+                caller.wait_stream(s)
+
+    def _shard_fn(self, kernel: str, m: int, k: int, candidates,
+                  variant: Optional[tuple],
+                  run_shard: Callable[[int, int, tuple, torch.Tensor], None],
                   out: torch.Tensor) -> Callable[[int, int], None]:
-        """One shard: the kernel over weight rows [start, start + size),
-        writing columns [start, start + size) of ``out`` in place."""
+        """One shard: the kernel's launch ``variant`` — or, unpinned, the
+        tuner's pick among ``candidates`` under ``(kernel,
+        shape_class(m, size, k))``, timed and reported — over weight rows
+        [start, start + size), writing columns [start, start + size) of
+        ``out`` in place."""
         def fn(start: int, size: int) -> None:
-            run_shard(start, size, out[:, start:start + size])
+            dst = out[:, start:start + size]
+            if variant is not None:
+                run_shard(start, size, variant, dst)
+                return
+            key = (kernel, shape_class(m, size, k))
+            cfg = self.tuner.select(key, candidates)
+            _, secs = ops.time_call(
+                lambda: run_shard(start, size, cfg, dst), out.device)
+            self.tuner.report(key, cfg, secs)
         return fn
 
     def q4_matmul(self, x: torch.Tensor, qw: QuantizedLinear, *,
                   isa: str = GEMV_ISA, key: Optional[str] = None,
-                  granularity: int = 8, work_scale: float = 1.0,
+                  variant: Optional[tuple] = None, granularity: int = 8,
+                  work_scale: float = 1.0,
                   update: bool = True) -> torch.Tensor:
         """Fp32-Int4-Fp32 ``x (M,K) @ Q4_0 (N,K).T`` as balanced per-core
-        N-row shards of the direct Q4 kernel, at the compiled lowering's
-        blocks for K (:func:`~repro_torch.kernels.ops.q4_blocks`).
+        N-row shards of a Q4 kernel entry, at the compiled lowering's
+        blocks for K (:func:`~repro_torch.kernels.ops.q4_blocks`): the
+        tuner's pick of ``("direct",)`` or ``("ring",)`` per shard, or
+        ``variant`` when pinned (the reference's pinned ``blocks``).
         ``isa`` keys the ratio table ("membw" for decode GEMV, "avx_vnni"
         when the same kernel runs compute-bound prefill); ``key`` refines
         the table key per layer kind (see :func:`kernel_key`)."""
         self._require_executing(isa)
         m, k = x.shape
         n = qw.out_features
-        blk = ops.q4_blocks(k)
         out = torch.empty((m, n), dtype=x.dtype, device=x.device)
 
-        def run_shard(start, size, dst):
+        def run_shard(start, size, var, dst):
             shard = QuantizedLinear(qw.packed[start:start + size],
                                     qw.scales[start:start + size])
-            ops.q4_matmul(x, shard, blocks=blk, out=dst)
+            ops.q4_variant(x, shard, var, out=dst)
 
         bytes_per_row = k * BYTES_PER_ELEM
         work = bytes_per_row if isa == GEMV_ISA else 2.0 * m * k
         spec = KernelSpec("q4_matmul", isa=isa, granularity=granularity,
                           work_per_unit=work, key=key)
-        self.dispatch(spec, n, self._shard_fn(run_shard, out),
-                      bytes_per_unit=bytes_per_row, work_scale=work_scale,
-                      update=update)
+        fn = self._shard_fn("q4_matmul", m, k, ops.Q4_CANDIDATES, variant,
+                            run_shard, out)
+        self._run_shards(spec, n, fn, x.device,
+                         bytes_per_unit=bytes_per_row, work_scale=work_scale,
+                         update=update)
         return out
 
     def int8_gemm(self, a_u8: torch.Tensor, w_s8: torch.Tensor, *,
                   isa: str = GEMM_ISA, key: Optional[str] = None,
-                  granularity: int = 16, work_scale: float = 1.0,
+                  variant: Optional[tuple] = None, granularity: int = 16,
+                  work_scale: float = 1.0,
                   update: bool = True) -> torch.Tensor:
         """u8 (M,K) x s8 (N,K) -> s32 (M,N) as balanced per-core N-row
-        shards of the int8 kernel (the paper's VNNI prefill GEMM; the s32
-        sums are exact, so shard outputs equal the monolithic product bit
-        for bit)."""
+        shards of the int8 kernel (the paper's VNNI prefill GEMM), each at
+        the tuner's pick of the kernel's instantiations (or ``variant``);
+        the s32 sums are exact, so shard outputs equal the monolithic
+        product bit for bit."""
         self._require_executing(isa)
         m, k = a_u8.shape
         n = w_s8.shape[0]
         out = torch.empty((m, n), dtype=torch.int32, device=a_u8.device)
 
-        def run_shard(start, size, dst):
-            ops.int8_gemm(a_u8, w_s8[start:start + size], out=dst)
+        def run_shard(start, size, var, dst):
+            ops.int8_gemm(a_u8, w_s8[start:start + size], out=dst,
+                          variant=var)
 
         work = 2.0 * m * k if isa != GEMV_ISA else float(k)
         spec = KernelSpec("int8_gemm", isa=isa, granularity=granularity,
                           work_per_unit=work, key=key)
-        self.dispatch(spec, n, self._shard_fn(run_shard, out),
-                      bytes_per_unit=float(k), work_scale=work_scale,
-                      update=update)
+        fn = self._shard_fn("int8_gemm", m, k, ops.INT8_CANDIDATES, variant,
+                            run_shard, out)
+        self._run_shards(spec, n, fn, a_u8.device, bytes_per_unit=float(k),
+                         work_scale=work_scale, update=update)
         return out
 
     def f32_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
@@ -348,25 +451,26 @@ class HybridKernelDispatcher:
                    update: bool = True) -> torch.Tensor:
         """f32 ``x (M,K) @ W (N,K).T`` as balanced per-core N-row shards of
         a plain ``torch.matmul`` (TF32 off) — no quantization, no block
-        constraints (``granularity=1``).  This is the trunk's precision
-        reference: the bytes model streams the f32 weight rows (4K bytes
-        each).  A shard may sum in another order than the monolithic
-        product (the BLAS picks its kernel by shape), so the two agree
-        within float tolerance, not bit for bit."""
+        constraints (``granularity=1``), no variant to tune.  This is the
+        trunk's precision reference: the bytes model streams the f32
+        weight rows (4K bytes each).  A shard may sum in another order than
+        the monolithic product (the BLAS picks its kernel by shape), so the
+        two agree within float tolerance, not bit for bit."""
         self._require_executing(isa)
         x = x.to(torch.float32)
         m, k = x.shape
         n = w.shape[0]
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
 
-        def run_shard(start, size, dst):
-            ops.f32_matmul(x, w[start:start + size], out=dst)
+        def fn(start: int, size: int) -> None:
+            ops.f32_matmul(x, w[start:start + size],
+                           out=out[:, start:start + size])
 
         bytes_per_row = 4.0 * k
         work = bytes_per_row if isa == GEMV_ISA else 2.0 * m * k
         spec = KernelSpec("f32_matmul", isa=isa, granularity=granularity,
                           work_per_unit=work, key=key)
-        self.dispatch(spec, n, self._shard_fn(run_shard, out),
-                      bytes_per_unit=bytes_per_row, work_scale=work_scale,
-                      update=update)
+        self._run_shards(spec, n, fn, x.device,
+                         bytes_per_unit=bytes_per_row, work_scale=work_scale,
+                         update=update)
         return out

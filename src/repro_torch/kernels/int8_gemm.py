@@ -6,6 +6,13 @@ Hopper, with its plain PyTorch version.
 it and its design.  The sum is an exact integer, so the kernel and
 :func:`int8_gemm_plain` agree bit for bit at every shape.
 
+Launch variants: the kernel body is compiled for five x tiles
+(:data:`VARIANTS`, each ``(kNT, kMT, kStages)``: tiles of 8 x rows and of
+16 W rows per block, ring slots per thread).  Without ``variant=`` the C
+entry picks one from M; ``variant=`` launches the one named, whatever M
+is (the kernel tuner's candidates for an eager shard).  All give the
+same bits.
+
 The source is compiled by ``nvcc`` for ``sm_90a`` at first launch
 (:mod:`._build`) and loaded with :mod:`ctypes`.  The wrapper takes
 :func:`int8_gemm_plain` only for tensors on the CPU; for CUDA tensors it
@@ -25,9 +32,13 @@ import torch
 from . import _build
 
 __all__ = ["int8_gemm", "int8_gemm_plain", "compile_library",
-           "reset_launch_counts", "SOURCE"]
+           "reset_launch_counts", "SOURCE", "VARIANTS"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "int8_gemm.cu"
+
+# (kNT, kMT, kStages) of every instantiation of int8_mma_kernel that
+# csrc/int8_gemm.cu compiles, in the order of the M regimes
+VARIANTS = ((1, 1, 6), (2, 2, 3), (4, 2, 3), (8, 2, 3), (8, 4, 3))
 
 
 def int8_gemm_plain(a_u8: torch.Tensor, w_s8: torch.Tensor) -> torch.Tensor:
@@ -48,8 +59,9 @@ def compile_library(force: bool = False) -> Tuple[Path, str]:
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return _build.load_library(SOURCE,
-                               {"int8_gemm": [vp, vp, vp, ci, ci, ci, ci, vp]})
+    return _build.load_library(SOURCE, {
+        "int8_gemm": [vp, vp, vp, ci, ci, ci, ci, vp],
+        "int8_gemm_variant": [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]})
 
 
 def _check(a_u8: torch.Tensor, w_s8: torch.Tensor) -> None:
@@ -86,8 +98,10 @@ def _route(a_u8: torch.Tensor) -> bool:
 
 
 def _launch(a_u8: torch.Tensor, w_s8: torch.Tensor,
-            out: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch the kernel into ``out`` (or a new tensor) and add one to
+            out: Optional[torch.Tensor],
+            variant: Optional[tuple] = None) -> torch.Tensor:
+    """Launch the kernel (the instantiation ``variant``, else the one the C
+    entry picks from M) into ``out`` (or a new tensor) and add one to
     ``int8_gemm.launches`` (an empty product launches nothing and counts
     nothing)."""
     _check(a_u8, w_s8)
@@ -98,25 +112,34 @@ def _launch(a_u8: torch.Tensor, w_s8: torch.Tensor,
         return out.zero_()
     with torch.cuda.device(a_u8.device):
         stream = torch.cuda.current_stream(a_u8.device).cuda_stream
-        err = _library().int8_gemm(a_u8.data_ptr(), w_s8.data_ptr(),
-                                   out.data_ptr(), m, n, k, ldc, stream)
+        ptrs = (a_u8.data_ptr(), w_s8.data_ptr(), out.data_ptr(), m, n, k,
+                ldc)
+        if variant is None:
+            err = _library().int8_gemm(*ptrs, stream)
+        else:
+            err = _library().int8_gemm_variant(*ptrs, *variant, stream)
     if err != 0:
         raise RuntimeError(f"int8_gemm kernel launch failed: cudaError {err} "
-                           f"(M={m}, N={n}, K={k})")
+                           f"(M={m}, N={n}, K={k}, variant={variant})")
     int8_gemm.launches += 1
     return out
 
 
 def int8_gemm(a_u8: torch.Tensor, w_s8: torch.Tensor, *,
-              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+              out: Optional[torch.Tensor] = None,
+              variant: Optional[tuple] = None) -> torch.Tensor:
     """``a_u8 (M, K) @ w_s8 (N, K).T -> (M, N)`` s32 (replaces
     ``int8_gemm_pallas``), written into ``out`` when given (a row-major
     (M, N) tensor whose rows may lie further apart than N).  Nothing is
-    padded: the kernel masks ragged M, N and K itself."""
+    padded: the kernel masks ragged M, N and K itself.  ``variant`` (one of
+    :data:`VARIANTS`) names the instantiation to launch; the plain version
+    has none to choose."""
+    if variant is not None and tuple(variant) not in VARIANTS:
+        raise ValueError(f"int8 variant {variant} is not one of {VARIANTS}")
     if _route(a_u8):
         y = int8_gemm_plain(a_u8, w_s8)
         return y if out is None else out.copy_(y)
-    return _launch(a_u8, w_s8, out)
+    return _launch(a_u8, w_s8, out, variant)
 
 
 int8_gemm.launches = 0

@@ -8,7 +8,10 @@ replica routing — on the card by default.
 Requests arrive open-loop and are routed to replicas by measured
 per-phase throughput; each replica interleaves chunked prefill with its
 running decode batch.  ``--machine`` drives a deterministic virtual clock
-from the paper's hybrid-CPU model (``--machine wall``: real wall time).
+from the paper's hybrid-CPU model (``--machine wall``: real wall time; a
+balanced trunk or head then dispatches over 4 OS threads whose shard
+times are measured, and the trunk runs eager: a compiled trunk replays
+its cost tape through virtual pools, which a wall clock does not have).
 ``--balanced-trunk`` runs every trunk projection and the LM head as one
 kernel launch each (compiled balanced decode) — the Q4 CUDA kernel, or
 with ``--trunk-quant int8`` the u8 x s8 CUDA kernel, or with
@@ -39,8 +42,11 @@ clock.
 as in the reference), the recurrent ones (jamba's mamba layers, xlstm's
 mLSTM and sLSTM blocks) included; the embed-input ones (musicgen-medium)
 have no token traffic and are refused.  ``--device cpu`` runs the
-same path with the kernels' plain torch version.  The kernel-tuner cache
-is not ported yet: ``--tuner-cache`` exits with a message.
+same path with the kernels' plain torch version.  Every eager shard
+takes its launch variant from one kernel tuner that all replicas share;
+``--tuner-cache PATH`` warm-starts it from PATH and saves it there after
+the run.  The compiled trunk consults no tuner, so a default
+``--balanced-trunk`` run saves an empty table.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import events as _ev
 from repro_torch.core.hybrid_sim import MACHINES
+from repro_torch.core.tuner import KernelTuner, TunerStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels import (
     GEMV_ISA,
@@ -79,10 +86,8 @@ from repro_torch.serving import (
 )
 from repro_torch.topology import TOPOLOGIES, TopologyDispatcher
 
-# flag -> what it needs that the port does not carry yet
-NOT_PORTED = {
-    "tuner_cache": "the kernel tuner front end (TunedMatmul)",
-}
+# threads of a balanced dispatcher on the wall clock (the reference's)
+WALL_WORKERS = 4
 # the fleet's SLOs (the reference's), also those the flight recorder burns on
 FLEET_SLO_TTFT, FLEET_SLO_TPOT = 2.0, 0.25
 
@@ -172,19 +177,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the LM head as balanced per-core Q4 kernel "
                          "shards (hybrid kernel dispatch) instead of inside "
                          "the decode step")
-    ap.add_argument("--tuner-cache", default=None, help="(not ported yet)")
+    ap.add_argument("--tuner-cache", default=None,
+                    help="JSON path to warm-start/persist the kernel "
+                         "tuner's launch-variant tables (shared across "
+                         "replicas, like --ratios for ratio tables)")
     return ap
 
 
-def check_ported(args) -> None:
+def check_flags(args) -> None:
     """Apply the reference's flag rules (``--topology`` implies
     ``--balanced-trunk`` and excludes ``--machine`` and ``--balanced-head``;
-    ``--fleet`` is a standalone mode), and raise SystemExit naming the
-    first requested mode the port lacks."""
-    for flag, needs in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported yet "
-                             f"(needs {needs})")
+    ``--fleet`` is a standalone mode), raising SystemExit where they
+    refuse."""
     if args.topology:
         if args.balanced_head:
             raise SystemExit("--topology dispatches the whole trunk; "
@@ -201,11 +205,6 @@ def check_ported(args) -> None:
                        or args.balanced_trunk or args.topology):
         raise SystemExit("--fleet is a standalone mode: the fleet owns "
                          "its topologies and cost models")
-    for flag in ("balanced_trunk", "balanced_head"):
-        if getattr(args, flag) and args.machine == "wall":
-            raise SystemExit(f"--machine wall with "
-                             f"--{flag.replace('_', '-')} is not ported yet "
-                             f"(needs the threaded dispatcher)")
 
 
 @dataclass
@@ -223,44 +222,51 @@ class ServeRun:
     clock: str
     report: LatencyReport
     iterations: list      # IterationStats of every engine step, in order
+    tuner: KernelTuner    # shared by every replica's dispatcher
+    tuner_warm: bool      # loaded from --tuner-cache
 
 
 def build_engines(args, cfg, params, device, *,
-                  double_buffer: bool = True,
-                  cuda_graph: bool = True) -> tuple:
+                  double_buffer: bool = True, cuda_graph: bool = True,
+                  tuner: Optional[KernelTuner] = None) -> tuple:
     """One continuous-batching engine (and, with ``--balanced-trunk`` or
-    ``--balanced-head``, one virtual-clock kernel dispatcher) per replica;
-    with ``--topology`` the dispatcher is a socket-local
-    :class:`~repro_torch.topology.TopologyDispatcher` and the clock runs
-    on the topology's flattened machine.  ``double_buffer=False`` lowers a
-    Q4 trunk onto the direct kernel instead of the double-buffered one;
-    ``cuda_graph=False`` runs the decode step uncaptured on the card."""
+    ``--balanced-head``, one kernel dispatcher) per replica: on a virtual
+    clock; with ``--topology`` a socket-local
+    :class:`~repro_torch.topology.TopologyDispatcher`, the clock running
+    on the topology's flattened machine; with ``--machine wall`` a
+    threaded dispatcher of 4 workers, its trunk eager.  Every dispatcher
+    takes its launch variants from ``tuner``.  ``double_buffer=False``
+    lowers a Q4 trunk onto the direct kernel instead of the
+    double-buffered one; ``cuda_graph=False`` runs the decode step
+    uncaptured on the card."""
     chunk = args.prefill_chunk if args.prefill_chunk > 0 else None
     max_seq = args.prompt_len + args.steps + 8
     engines, dispatchers = [], []
     clock = args.topology or args.machine
+    wall = args.machine == "wall"
     for i, n_slots in enumerate(replica_slot_counts(args.batch,
                                                     args.replicas)):
-        cost = (None if args.machine == "wall"
-                else HybridPhaseCost(clock, seed=args.seed + i))
+        cost = None if wall else HybridPhaseCost(clock, seed=args.seed + i)
         head, trunk = None, None
-        if args.balanced_trunk:
+        if args.balanced_trunk or args.balanced_head:
             if args.topology:
                 disp = TopologyDispatcher(args.topology, seed=args.seed + i,
-                                          keep_stats=False)
+                                          keep_stats=False, tuner=tuner)
+            elif wall:
+                disp = HybridKernelDispatcher.threaded(
+                    WALL_WORKERS, keep_stats=False, tuner=tuner)
             else:
                 disp = HybridKernelDispatcher.virtual(
-                    args.machine, seed=args.seed + i, keep_stats=False)
+                    args.machine, seed=args.seed + i,
+                    execute=True, keep_stats=False,
+                    tuner=tuner)
             dispatchers.append(disp)
-            trunk = BalancedTrunk.from_params(cfg, params, disp,
-                                              quant=args.trunk_quant,
-                                              double_buffer=double_buffer,
-                                              device=device)
+        if args.balanced_trunk:
+            trunk = BalancedTrunk.from_params(
+                cfg, params, disp, quant=args.trunk_quant,
+                mode="eager" if wall else "compiled",
+                double_buffer=double_buffer, device=device)
         elif args.balanced_head:
-            disp = HybridKernelDispatcher.virtual(
-                args.machine, seed=args.seed + i, execute=True,
-                keep_stats=False)
-            dispatchers.append(disp)
             head = balanced_lm_head(cfg, params, disp, device=device)
         engines.append(ContinuousBatchingEngine(
             cfg, params, max_slots=n_slots, max_seq=max_seq,
@@ -274,7 +280,7 @@ def setup(args, params: Optional[dict] = None, cfg=None) -> tuple:
     """Check the requested modes and resolve (config, device, params) for
     ``args``: ``params`` (the port's layout, on the device) replaces the
     seeded random weights, ``cfg`` the ``--arch`` / ``--preset`` one."""
-    check_ported(args)
+    check_flags(args)
     if not args.topology:   # a topology is its own clock
         args.machine = args.machine or "ultra-125h"
     device = resolve_device(args.device)
@@ -296,9 +302,14 @@ def serve(args, params: Optional[dict] = None, *, cfg=None,
     :func:`setup`; ``double_buffer`` and ``cuda_graph`` are passed to
     :func:`build_engines`."""
     cfg, device, params = setup(args, params, cfg)
+    # one kernel tuner shared by every replica's dispatcher, so a single
+    # --tuner-cache file accumulates all launch-variant measurements
+    tuner = KernelTuner()
+    store = TunerStore(args.tuner_cache) if args.tuner_cache else None
+    warm = store is not None and store.load_into(tuner)
     engines, dispatchers = build_engines(args, cfg, params, device,
                                          double_buffer=double_buffer,
-                                         cuda_graph=cuda_graph)
+                                         cuda_graph=cuda_graph, tuner=tuner)
 
     table = RatioTable(args.replicas, alpha=0.3)
     if args.ratios:
@@ -325,12 +336,15 @@ def serve(args, params: Optional[dict] = None, *, cfg=None,
         requests, clock=clock, wall_duration=time.perf_counter() - t_wall)
     if args.ratios:
         RatioStore(args.ratios).save(table)
+    if store is not None:
+        store.save(tuner)
     return ServeRun(cfg=cfg, device=device, engines=engines,
                     dispatchers=dispatchers, inflight=inflight,
                     requests=requests, routed=routed,
                     slot_counts=replica_slot_counts(args.batch,
                                                     args.replicas),
-                    clock=clock, report=report, iterations=iterations)
+                    clock=clock, report=report, iterations=iterations,
+                    tuner=tuner, tuner_warm=warm)
 
 
 @dataclass
@@ -371,9 +385,13 @@ def legacy_lines(run: LegacyRun) -> list:
 
 def report_lines(args, run: ServeRun) -> list:
     """The printout of a run (the reference's lines)."""
-    lines = [f"[serve] {args.replicas} replica(s), slots={run.slot_counts}, "
-             f"routed={run.routed.tolist()} ({run.clock} clock) on "
-             f"{run.device}"]
+    lines = []
+    if run.tuner_warm:
+        lines.append(f"[serve] warm-started kernel tuner from "
+                     f"{args.tuner_cache}")
+    lines.append(f"[serve] {args.replicas} replica(s), "
+                 f"slots={run.slot_counts}, routed={run.routed.tolist()} "
+                 f"({run.clock} clock) on {run.device}")
     lines += run.report.lines()
     table = run.inflight.table
     lines.append(f"[serve] replica prefill ratios: "
@@ -411,6 +429,9 @@ def report_lines(args, run: ServeRun) -> list:
     sample = run.requests[0].tokens
     lines.append(f"[serve] sample: "
                  f"{sample[-min(16, args.steps):].tolist()}")
+    if args.tuner_cache:
+        lines.append(f"[serve] saved kernel tuner tables to "
+                     f"{args.tuner_cache}")
     return lines
 
 
@@ -606,7 +627,7 @@ def run_mode(args, registry=None) -> list:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    check_ported(args)
+    check_flags(args)
     observers = Observers(args)
     try:
         for line in run_mode(args, observers.registry):

@@ -92,6 +92,7 @@ class BalancedTrunk:
     def from_params(cls, cfg: ModelConfig, params: dict, dispatcher, *,
                     quant: str = "q4", include_head: bool = True,
                     mode: str = "compiled", double_buffer: bool = True,
+                    pin_q4_blocks: bool = False,
                     device="cuda") -> "BalancedTrunk":
         """Quantize (or copy, for fp32) every trunk projection of
         ``params`` into dispatcher-bound balanced linears on ``device``.
@@ -100,11 +101,15 @@ class BalancedTrunk:
         convention: a (d_in, d_out) parameter becomes an (N, K) = (d_out,
         d_in) balanced linear computing ``x @ W.T``.
 
-        Eager and compiled Q4 launches take the same blocks
-        (:func:`~repro_torch.kernels.ops.q4_blocks`), so the reference's
-        ``pin_q4_blocks`` has nothing to pin here.  An fp32 trunk switches
-        TF32 off for the process's CUDA matmuls (PyTorch's default), so
-        its products are full float32.
+        ``pin_q4_blocks`` pins every eager Q4 shard to the launch variant
+        the compiled lowering launches (``("ring",)`` while
+        ``double_buffer``, else ``("direct",)``), so the kernel tuner is
+        skipped for them.  Unlike the reference's, where ``bk`` sets the
+        order of the sums, the port's bits are the same either way: every
+        Q4 launch sums in an order set by K alone, at the same blocks
+        (:func:`~repro_torch.kernels.ops.q4_blocks`).  An fp32 trunk
+        switches TF32 off for the process's CUDA matmuls (PyTorch's
+        default), so its products are full float32.
         """
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}")
@@ -114,6 +119,10 @@ class BalancedTrunk:
             torch.backends.cuda.matmul.fp32_precision = "ieee"
 
         def make_layer(w):  # w is dense (N, K)
+            if quant == "q4" and pin_q4_blocks:
+                return layer_cls.from_dense(
+                    w.to(dev), dispatcher,
+                    variant=("ring",) if double_buffer else ("direct",))
             return layer_cls.from_dense(w.to(dev), dispatcher)
 
         bank: Dict[Tuple[int, str, str], List] = {}

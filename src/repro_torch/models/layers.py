@@ -182,20 +182,27 @@ class BalancedQuantLinear:
     (the paper's decode hot path), holding the Q4_0 weight.  The compiled
     lowering (:mod:`repro_torch.kernels.compiled`) runs it as one kernel
     launch and replays the per-core split on the dispatcher; calling it
-    runs one real kernel shard per core (eager dispatch).  ``isa`` keys
-    the table per phase: ``"membw"`` for memory-bound decode GEMV,
-    ``"avx_vnni"`` when the same weight runs a compute-bound prefill GEMM.
+    runs one real kernel shard per core (eager dispatch), each at the
+    dispatcher's tuned launch variant, or at ``variant`` when pinned
+    (``("direct",)`` or ``("ring",)``; the reference pins block shapes).
+    ``isa`` keys the table per phase: ``"membw"`` for memory-bound decode
+    GEMV, ``"avx_vnni"`` when the same weight runs a compute-bound prefill
+    GEMM.
     """
 
-    def __init__(self, qw: QuantizedLinear, dispatcher):
+    def __init__(self, qw: QuantizedLinear, dispatcher, *,
+                 variant: Optional[tuple] = None):
         self.qw = qw
         self.dispatcher = dispatcher
+        self.variant = variant
 
     @classmethod
-    def from_dense(cls, w: torch.Tensor, dispatcher) -> "BalancedQuantLinear":
+    def from_dense(cls, w: torch.Tensor, dispatcher, *,
+                   variant: Optional[tuple] = None) -> "BalancedQuantLinear":
         """Quantize a dense (N, K) weight to Q4_0 (on w's device) and bind
         the dispatcher."""
-        return cls(quantize_q4_0(w.to(torch.float32)), dispatcher)
+        return cls(quantize_q4_0(w.to(torch.float32)), dispatcher,
+                   variant=variant)
 
     @property
     def out_features(self) -> int:
@@ -203,7 +210,8 @@ class BalancedQuantLinear:
 
     def __call__(self, x: torch.Tensor, *, isa: str = "membw",
                  key: Optional[str] = None) -> torch.Tensor:
-        y = self.dispatcher.q4_matmul(_rows(x), self.qw, isa=isa, key=key)
+        y = self.dispatcher.q4_matmul(_rows(x), self.qw, isa=isa, key=key,
+                                      variant=self.variant)
         return y.reshape(*x.shape[:-1], -1)
 
 

@@ -364,7 +364,8 @@ def balanced_lm_head(cfg: ModelConfig, params: dict, dispatcher, *,
                      device="cuda"):
     """Bind the model's LM head to a hybrid kernel dispatcher: the (vocab,
     d_model) head matrix is Q4_0-quantized on ``device`` and every call
-    runs as balanced per-core shards of the direct Q4 kernel (see
+    runs as balanced per-core shards of a Q4 kernel entry, each the
+    dispatcher's tuner picks (see
     :class:`~repro_torch.models.layers.BalancedQuantLinear`).  Use with
     ``forward(..., apply_head=False)``: the decode-step Fp32-Int4-Fp32 GEMV
     — the paper's hot path — then runs through the ratio-table loop

@@ -30,7 +30,12 @@ On a mesh (DTensor activations) the forget gates' log-sigmoid is taken as
 ``-softplus(-x)``: DTensor has no sharding strategy for
 ``aten.log_sigmoid_backward``, and softplus and its backward are
 pointwise ones it has.  Off a mesh it stays ``F.logsigmoid``, bit for bit
-(:func:`_log_sigmoid`).
+(:func:`_log_sigmoid`).  An mLSTM chunk of DTensors runs on local shards
+(:func:`_mlstm_chunk_on_shards`): its operands are made whole along the
+chunk and the head dims, split only over batch rows and heads, and each
+rank computes its own rows and heads, as the attention does.  DTensor's
+own operators would flatten a sharded chunk dim into a batched product,
+which torch 2.11 refuses.
 """
 
 from __future__ import annotations
@@ -132,6 +137,8 @@ def _mlstm_chunk(q, k, v, ig, fg, state, inplace: bool = True):
     holding the same values, with the chunk's inputs left as they are, so
     autograd can differentiate through the chunks (it saves ``c0`` and
     ``n0`` for the products above)."""
+    if any(is_dtensor(t) for t in (q, k, v, ig, fg, *state)):
+        return _mlstm_chunk_on_shards(q, k, v, ig, fg, state, inplace)
     c0, n0, m0 = state
     b = torch.cumsum(fg, dim=-1)                      # (B,H,L) log forget cum
     # D_ts = ig_s + b_t - b_s  (s <= t)
@@ -162,26 +169,63 @@ def _mlstm_chunk(q, k, v, ig, fg, state, inplace: bool = True):
     n_upd = torch.einsum("bhl,bhld->bhd", wk_end, k)
     bsz, nh, dv, dk = c0.shape
     wv = (wk_end[..., None] * v).transpose(2, 3)      # (B,H,dv,L)
-    if not inplace or is_dtensor(c0):
-        c = torch.baddbmm(reshape(c0 * decay[..., None, None],
-                                  (bsz * nh, dv, dk)),
-                          reshape(wv, (bsz * nh, dv, l)),
-                          reshape(k, (bsz * nh, l, dk)))
-        new = (reshape(c, (bsz, nh, dv, dk)), n0 * decay[..., None] + n_upd,
-               m_end)
-        if not inplace:
-            return h, new
-        # a DTensor state: the update's partial sums would change its
-        # placements in place; computed out of place, copied back
-        for dst, src in zip((c0, n0, m0), new):
-            copy_into(dst, src)
-        return h, (c0, n0, m0)
+    if not inplace:
+        c = torch.baddbmm((c0 * decay[..., None, None]).reshape(
+                              bsz * nh, dv, dk),
+                          wv.reshape(bsz * nh, dv, l),
+                          k.reshape(bsz * nh, l, dk))
+        return h, (c.reshape(bsz, nh, dv, dk),
+                   n0 * decay[..., None] + n_upd, m_end)
     c0.mul_(decay[..., None, None])
     c0.view(bsz * nh, dv, dk).baddbmm_(wv.reshape(bsz * nh, dv, l),
                                        k.reshape(bsz * nh, l, dk))
     n0.mul_(decay[..., None]).add_(n_upd)
     m0.copy_(m_end)
     return h, (c0, n0, m0)
+
+
+def _mlstm_chunk_on_shards(q, k, v, ig, fg, state, inplace: bool):
+    """:func:`_mlstm_chunk` of DTensors on local shards.  Every operand
+    (a plain one taken as replicated) is brought to one layout: q's
+    shards of batch rows and heads (dims 0 and 1), whole along every other
+    dim.  Each rank runs the chunk on its local rows and heads, and h and
+    the new state come back as DTensors of that layout.  With ``inplace``
+    the state's own tensors are written, each in its own layout
+    (:func:`~repro_torch.sharding.specs.copy_into`)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = next(t for t in (q, k, v, ig, fg, *state) if is_dtensor(t))
+    mesh = lead.device_mesh
+    want = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+            for p in lead.placements]
+    whole = [Replicate()] * mesh.ndim
+
+    def local(t):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, whole, run_check=False)
+        if list(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        return t.to_local()
+
+    def shard(t, shape):
+        stride = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            stride[i] = stride[i + 1] * shape[i + 1]
+        return DTensor.from_local(t, mesh, want, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=tuple(stride))
+
+    bsz, nh, l, _ = q.shape
+    h, new = _mlstm_chunk(local(q), local(k), local(v), local(ig),
+                          local(fg), tuple(local(t) for t in state),
+                          inplace=False)
+    h = shard(h, (bsz, nh, l, v.shape[3]))
+    new = tuple(shard(t, tuple(s.shape)) for t, s in zip(new, state))
+    if not inplace:
+        return h, new
+    for dst, src in zip(state, new):
+        copy_into(dst, src)
+    return h, tuple(state)
 
 
 def mlstm_step(q, k, v, ig, fg, state):
@@ -251,7 +295,11 @@ def mlstm_fwd(cfg: ModelConfig, p: dict, x: torch.Tensor,
         * dk ** -0.5
     k = torch.einsum("bshd,hdk->bhsk", uc_h, p["wk"]).to(torch.float32)
     v = torch.einsum("bshd,hdk->bhsk", u_h, p["wv"]).to(torch.float32)
-    gates = uc.to(torch.float32) @ p["w_if"] + p["b_if"]
+    # the product as one (B*S, di) x (di, 2H) mm: the sharded reshape
+    # carries a sequence-sharded gradient through its flattening, which
+    # matmul's own view refuses on a DTensor (torch 2.11)
+    gates = reshape(reshape(uc.to(torch.float32), (b_sz * s_len, di))
+                    @ p["w_if"] + p["b_if"], (b_sz, s_len, 2 * nh))
     ig = gates[..., :nh].transpose(1, 2)                  # (B,H,S)
     fg = _log_sigmoid(gates[..., nh:]).transpose(1, 2)
 

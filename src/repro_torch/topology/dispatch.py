@@ -55,6 +55,7 @@ import torch
 
 from repro_torch.analysis import invariants as _contracts
 from repro_torch.core import events as _ev
+from repro_torch.core.tuner import KernelTuner
 from repro_torch.kernels.dispatch import GEMV_ISA, HybridKernelDispatcher
 from repro_torch.quant.q4 import BYTES_PER_ELEM, QuantizedLinear
 from repro_torch.runtime import (
@@ -80,9 +81,10 @@ class TopologyDispatcher:
 
     One instance owns one socket-level ratio table, one flat
     :class:`HybridKernelDispatcher` per socket, a placement registry
-    pinning weights' column ranges to sockets, and aggregate bytes/busy
-    accounting on top of the per-socket accounting the inner dispatchers
-    already keep.  ``execute=True`` runs the real kernel shards (the eager
+    pinning weights' column ranges to sockets, one :class:`KernelTuner`
+    that every socket's shards share (``tuner=``), and aggregate
+    bytes/busy accounting on top of the per-socket accounting the inner
+    dispatchers already keep.  ``execute=True`` runs the real kernel shards (the eager
     trunk); the compiled trunk only replays plans through the pools.
     """
 
@@ -90,6 +92,7 @@ class TopologyDispatcher:
                  dynamic: bool = True, socket_local: bool = True,
                  execute: bool = False, alpha: float = 0.3, seed: int = 0,
                  table: Optional[RatioTable] = None,
+                 tuner: Optional[KernelTuner] = None,
                  sink: Optional[StatsSink] = None, keep_stats: bool = True):
         if isinstance(topology, str):
             topology = make_topology(topology, seed=seed)
@@ -99,8 +102,11 @@ class TopologyDispatcher:
         self.sink = sink
         self.keep_stats = keep_stats
         self.stats: list = []
+        # one tuner for every socket's shards: a variant's time depends on
+        # the shard's shape, not on the simulated socket it is charged to
+        self.tuner = tuner or KernelTuner()
         sub_kwargs = dict(dynamic=dynamic, execute=execute, alpha=alpha,
-                          sink=sink, keep_stats=False)
+                          tuner=self.tuner, sink=sink, keep_stats=False)
         if socket_local:
             self.socket_dispatchers = [
                 HybridKernelDispatcher.virtual(m, **sub_kwargs)
@@ -324,7 +330,8 @@ class TopologyDispatcher:
 
     def q4_matmul(self, x: torch.Tensor, qw: QuantizedLinear, *,
                   isa: str = GEMV_ISA, key: Optional[str] = None,
-                  granularity: int = 8, update: bool = True) -> torch.Tensor:
+                  variant: Optional[tuple] = None, granularity: int = 8,
+                  update: bool = True) -> torch.Tensor:
         """Fp32-Int4-Fp32 ``x (M,K) @ Q4_0 (N,K).T``: columns sharded
         socket-first by the outer table, then per-core kernel shards
         within each socket (see :meth:`HybridKernelDispatcher.q4_matmul`);
@@ -332,7 +339,8 @@ class TopologyDispatcher:
         weight."""
         if not self.socket_local:
             return self.flat.q4_matmul(
-                x, qw, isa=isa, key=key, granularity=granularity,
+                x, qw, isa=isa, key=key, variant=variant,
+                granularity=granularity,
                 work_scale=self._oblivious_scale(isa), update=update)
         m, k = x.shape
         bytes_per_row = k * BYTES_PER_ELEM
@@ -343,20 +351,22 @@ class TopologyDispatcher:
         def run_sub(s, lo, hi, scale):
             shard = QuantizedLinear(qw.packed[lo:hi], qw.scales[lo:hi])
             return self.socket_dispatchers[s].q4_matmul(
-                x, shard, isa=isa, key=key, granularity=granularity,
-                work_scale=scale, update=update)
+                x, shard, isa=isa, key=key, variant=variant,
+                granularity=granularity, work_scale=scale, update=update)
 
         return self._kernel(spec, qw.out_features, qw, run_sub,
                             bytes_per_unit=bytes_per_row, update=update)
 
     def int8_gemm(self, a_u8: torch.Tensor, w_s8: torch.Tensor, *,
                   isa: str = "avx_vnni", key: Optional[str] = None,
-                  granularity: int = 16, update: bool = True) -> torch.Tensor:
+                  variant: Optional[tuple] = None, granularity: int = 16,
+                  update: bool = True) -> torch.Tensor:
         """u8 x s8 -> s32 GEMM, socket-sharded then core-sharded (s32
         accumulation keeps shard outputs bit-identical)."""
         if not self.socket_local:
             return self.flat.int8_gemm(
-                a_u8, w_s8, isa=isa, key=key, granularity=granularity,
+                a_u8, w_s8, isa=isa, key=key, variant=variant,
+                granularity=granularity,
                 work_scale=self._oblivious_scale(isa), update=update)
         m, k = a_u8.shape
         work = 2.0 * m * k if isa != GEMV_ISA else float(k)
@@ -365,7 +375,7 @@ class TopologyDispatcher:
 
         def run_sub(s, lo, hi, scale):
             return self.socket_dispatchers[s].int8_gemm(
-                a_u8, w_s8[lo:hi], isa=isa, key=key,
+                a_u8, w_s8[lo:hi], isa=isa, key=key, variant=variant,
                 granularity=granularity, work_scale=scale, update=update)
 
         return self._kernel(spec, int(w_s8.shape[0]), w_s8, run_sub,

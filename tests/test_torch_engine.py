@@ -514,8 +514,8 @@ def test_cli_prefill_lanes(capsys):
 @pytest.mark.parametrize("flags,message", [
     (["--balanced-head", "--balanced-trunk"],
      "--balanced-trunk already includes the head; drop --balanced-head"),
-    (["--balanced-head", "--machine", "wall"],
-     "--machine wall with --balanced-head is not ported yet"),
+    (["--topology", "dual-125h", "--machine", "ultra-125h"],
+     "--topology provides the virtual clock"),
 ])
 def test_cli_refuses_conflicting_modes(flags, message):
     with pytest.raises(SystemExit, match=message):

@@ -164,11 +164,13 @@ def test_gpu_eager_shards_equal_monolithic(cuda):
         for c in range(disp.n_workers):
             disp.set_active(c, c < disp.n_workers - parked)
         n_live = disp.n_workers - parked
-        before = (K.q4_matmul.launches, I8.int8_gemm.launches)
+        before = (K.q4_matmul.launches + K.q4_matmul_db.launches,
+                  I8.int8_gemm.launches)
         y = disp.q4_matmul(x, qw)
         acc = disp.int8_gemm(a, w)
         torch.cuda.synchronize()
-        assert K.q4_matmul.launches - before[0] <= n_live
+        assert K.q4_matmul.launches + K.q4_matmul_db.launches - \
+            before[0] <= n_live
         assert I8.int8_gemm.launches - before[1] <= n_live
         assert torch.equal(y, K.q4_matmul_db(x, qw, bk))
         assert torch.equal(acc, I8.int8_gemm(a, w))
@@ -463,8 +465,9 @@ def test_gpu_eager_trunk_is_not_captured(cuda):
 
 @pytest.mark.gpu
 def test_gpu_balanced_head_shards_equal_one_launch(cuda):
-    """The balanced head's eager per-core shards (one direct-kernel launch
-    per non-empty shard) equal one q4_matmul over the whole head, bitwise."""
+    """The balanced head's eager per-core shards (one launch per non-empty
+    shard, of the entry the tuner picks) equal one q4_matmul over the
+    whole head, bitwise."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import balanced_lm_head, init_params
 
@@ -474,11 +477,12 @@ def test_gpu_balanced_head_shards_equal_one_launch(cuda):
     disp = HybridKernelDispatcher.virtual("ultra-125h", execute=True)
     head = balanced_lm_head(cfg, params, disp, device=cuda)
     x = torch.randn((3, cfg.d_model), device=cuda)
-    before = K.q4_matmul.launches
+    before = K.q4_matmul.launches + K.q4_matmul_db.launches
     y = head(x, isa="membw")
     torch.cuda.synchronize()
     shards = int((disp.last_stats.counts > 0).sum())
-    assert K.q4_matmul.launches - before == shards > 0
+    assert K.q4_matmul.launches + K.q4_matmul_db.launches - before == \
+        shards > 0
     assert torch.equal(y, K.q4_matmul(x, head.qw, q4_blocks(cfg.d_model)[2]))
 
 
@@ -588,25 +592,28 @@ def test_gpu_topology_eager_shards_equal_one_launch(cuda, topology, kernel):
     disp = TopologyDispatcher(topology, execute=True)
     disp.table.set("membw", np.array([1.0, 3.0]))
     disp.table.set("avx_vnni", np.array([3.0, 1.0]))
-    before = (K.q4_matmul.launches, I8.int8_gemm.launches)
+    def q4_launches():   # a shard launches the tuner's pick of the two
+        return K.q4_matmul.launches + K.q4_matmul_db.launches
+
+    before = (q4_launches(), I8.int8_gemm.launches)
     if kernel == "q4":
         x = torch.randn((4, 4096), generator=gen, device=cuda)
         qw = quantize_q4_0(torch.randn((11008, 4096), generator=gen,
                                        device=cuda))
         y = disp.q4_matmul(x, qw)
-        want = K.q4_matmul_db(x, qw, q4_blocks(4096)[2])
     else:
         a = torch.randint(0, 256, (4, 4096), generator=gen, device=cuda,
                           dtype=torch.int32).to(torch.uint8)
         w = torch.randint(-127, 128, (11008, 4096), generator=gen,
                           device=cuda, dtype=torch.int32).to(torch.int8)
         y = disp.int8_gemm(a, w)
-        want = I8.int8_gemm(a, w)
+    launched = (q4_launches() - before[0],
+                I8.int8_gemm.launches - before[1])
+    want = (K.q4_matmul_db(x, qw, q4_blocks(4096)[2]) if kernel == "q4"
+            else I8.int8_gemm(a, w))
     torch.cuda.synchronize()
     shards = sum(int((d.last_stats.counts > 0).sum())
                  for d in disp.socket_dispatchers)
-    launched = (K.q4_matmul.launches - before[0],
-                I8.int8_gemm.launches - before[1] - (kernel == "int8"))
     assert launched == ((shards, 0) if kernel == "q4" else (0, shards))
     assert shards > 16 and torch.equal(y, want)
 
@@ -1105,3 +1112,90 @@ def test_gpu_sharded_decode_equals_the_plain(mesh11):
           f"{all(torch.equal(a, b) for a, b in pairs)}")
     for a, b in pairs:
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# ------------------------------------------- launch variants, threads --
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(1, 4096, 4096), (4, 11008, 4096),
+                                   (32, 4096, 11008)])
+def test_gpu_every_variant_equals_the_default_entry(cuda, m, n, k):
+    """The kernel tuner's candidates: both Q4 entries, and every compiled
+    instantiation of the int8 kernel at any M, bitwise equal to the
+    default entry."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    qw = quantize_q4_0(torch.randn((n, k), generator=gen, device=cuda))
+    want = K.q4_matmul(x, qw, q4_blocks(k)[2])
+    for variant in ops.Q4_CANDIDATES:
+        assert torch.equal(ops.q4_variant(x, qw, variant), want), variant
+    a, w = _ints(m, n, k, cuda, seed=m)
+    want = I8.int8_gemm(a, w)
+    before = I8.int8_gemm.launches
+    for variant in ops.INT8_CANDIDATES:
+        assert torch.equal(I8.int8_gemm(a, w, variant=variant), want), \
+            variant
+    torch.cuda.synchronize()
+    assert I8.int8_gemm.launches - before == len(ops.INT8_CANDIDATES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["q4", "int8", "f32"])
+def test_gpu_threaded_region_equals_virtual(cuda, kernel):
+    """A threaded dispatcher's region: shards launched from 4 worker
+    threads, each on its own CUDA stream after the caller's, equal to the
+    virtual dispatcher's shards run in turn on the caller's stream (Q4 and
+    int8 bitwise); the output is ready on the caller's stream."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    # x made on the caller's stream just before the region
+    x = torch.randn((4, 4096), generator=gen, device=cuda) * 2.0
+    w = torch.randn((11008, 4096), generator=gen, device=cuda)
+    virt = HybridKernelDispatcher.virtual("ultra-125h", execute=True)
+    thr = HybridKernelDispatcher.threaded(4)
+    try:
+        outs = []
+        for d in (virt, thr):
+            if kernel == "q4":
+                outs.append(d.q4_matmul(x, quantize_q4_0(w)))
+            elif kernel == "int8":
+                a, ws = _ints(4, 11008, 4096, cuda, seed=3)
+                outs.append(d.int8_gemm(a, ws))
+            else:
+                outs.append(d.f32_matmul(x, w))
+            outs[-1] = outs[-1].clone()   # read on the caller's stream
+        torch.cuda.synchronize()
+        if kernel == "f32":
+            torch.testing.assert_close(outs[1], outs[0], rtol=1e-5,
+                                       atol=1e-4)
+        else:
+            assert torch.equal(outs[1], outs[0])
+        assert len(thr._streams.streams) == 4
+        assert (thr.last_stats.times > 0).sum() == 4
+    finally:
+        virt.close()
+        thr.close()
+
+
+@pytest.mark.gpu
+def test_gpu_captured_step_makes_no_host_sync(cuda):
+    """JA001 on the card: reduced llama2-7b's compiled decode step, run
+    uncaptured and replayed from its graph under sync debug mode
+    "error", makes no synchronizing CUDA call."""
+    from repro_torch.analysis import step_audit
+
+    engine = _graph_engine(cuda, "q4-db")
+    engine.step()                      # prefill: workspaces, first launches
+    _until_all_decoding(engine)
+    engine.step()                      # the capture
+    torch.cuda.synchronize()
+    man = engine.manager
+    tok = torch.as_tensor(man.last_token[:, None], device=cuda)
+    pos = torch.as_tensor(man.pos, device=cuda)
+    torch.cuda.synchronize()
+    got = step_audit.audit_sync_debug(
+        lambda: engine._decode_body(tok, pos), where="body")
+    got += step_audit.audit_sync_debug(engine._graph.graph.replay,
+                                       where="replay")
+    torch.cuda.synchronize()
+    assert got == []

@@ -50,6 +50,14 @@ Tolerances:
   scale of the plain run's and the reference's (the sharded projections
   sum in another order, so not bitwise), with every position past the
   written ones still zero.
+* The mLSTM chunk on local shards, on (1, 4) and (2, 2): one chunk of
+  DTensor operands, the chunk dim over "model" (the layout whose
+  flattening torch 2.11 refuses) or batch rows and heads split, against
+  the plain chunk: h and the end state within 1e-5 of their scale, the
+  gradients within xlstm's 2e-3 of theirs; the in-place serving form
+  writes the same state into the DTensor state's own tensors.  Reduced
+  xlstm-1.3b's train step on (2, 2) against the plain step, as on
+  (1, 4).
 """
 
 import dataclasses
@@ -86,6 +94,13 @@ MOE_ARCH = "granite-moe-1b-a400m"
 REPAIR_STEPS = (("moe14", MOE_ARCH, None), ("xlstm14", "xlstm-1.3b", 8))
 XLSTM_GRAD_TOL = 2e-3
 XLSTM_PARTED_SHARE = 1e-4
+# xlstm14's weights stepped on other meshes: (key, mesh)
+XLSTM_MESH_STEPS = (("xlstm22", "2x2"),)
+# the mLSTM chunk's operands (B, H, L, d) and their layouts on the meshes
+CHUNK_B, CHUNK_H, CHUNK_L, CHUNK_D = 4, 4, 8, 8
+CHUNK_MESHES = ("1x4", "2x2")
+CHUNK_LAYOUTS = {"seq": ("data", None, "model", None),
+                 "heads": ("data", "model", None, None)}
 DEC_B, DEC_S, DEC_PROMPT, DEC_STEPS = 4, 16, 8, 3
 DEC_MESHES = {"2x2": ((2, 2), ("data", "model")),
               "1x4": ((1, 4), ("data", "model"))}
@@ -434,6 +449,59 @@ def _worker(rank: int, world: int, tmp: str) -> None:
         for p, leaf in leaves_with_path(rnew):
             res[key + "/new/" + p] = full(leaf)
 
+    # the xlstm step on other meshes, xlstm14's weights
+    xcfg = dataclasses.replace(reduced_config("xlstm-1.3b"), n_layers=8)
+    xparams = map_with_path(
+        lambda p, _: torch.from_numpy(data["xlstm14/" + p]),
+        init_params(xcfg, torch.Generator().manual_seed(0), device="cpu"))
+    xopt = init_opt_state(xparams, opt_cfg)
+    for key, name in XLSTM_MESH_STEPS:
+        xm = meshes[name]
+        xps = param_shardings(xm, xparams)
+        with activation_sharding(xm):
+            xnew, _, xmet = make_train_step(
+                xcfg, opt_cfg, remat=True, grad_shardings=xps)(
+                    distribute(xparams, xps),
+                    distribute(xopt, opt_shardings(xm, xopt, xps)),
+                    distribute(batch, batch_shardings(xm, batch,
+                                                      batch_dim=1)))
+        res[key + "/loss"] = float(xmet["loss"])
+        res[key + "/grad_norm"] = float(xmet["grad_norm"])
+        for p, leaf in leaves_with_path(xnew):
+            res[key + "/new/" + p] = full(leaf)
+
+    # the mLSTM chunk of DTensors, on local shards
+    from repro_torch.models.xlstm import _mlstm_chunk
+    ch = {k: torch.from_numpy(data["chunk/" + k]) for k in
+          ("q", "k", "v", "ig", "fg", "c", "n", "m", "ct")}
+    for name in CHUNK_MESHES:
+        mesh = meshes[name]
+        for lay, spec in CHUNK_LAYOUTS.items():
+            def put(t, dims):
+                return distribute({"t": t}, {"t": Sharding(mesh, dims)})["t"]
+
+            ins = {k: put(ch[k], spec[:ch[k].dim()]).requires_grad_()
+                   for k in ("q", "k", "v", "ig", "fg")}
+            # copies: the in-place form below writes the state
+            st = [put(ch[k].clone(), spec[:2] + (None,) * (ch[k].dim() - 2))
+                  for k in ("c", "n", "m")]
+            h, (c, n, m) = _mlstm_chunk(*ins.values(), tuple(st),
+                                        inplace=False)
+            loss = (full(h) * ch["ct"]).sum() + full(c).sum() + \
+                full(n).sum()
+            grads = torch.autograd.grad(loss, list(ins.values()))
+            pre = f"chunk/{name}/{lay}/"
+            for k, t in (("h", h), ("c", c), ("n", n), ("m", m)):
+                res[pre + k] = full(t).detach()
+            for k, g in zip(ins, grads):
+                res[pre + "grad/" + k] = full(g)
+            with torch.no_grad():
+                _, new = _mlstm_chunk(*(t.detach() for t in ins.values()),
+                                      tuple(st), inplace=True)
+            res[pre + "inplace"] = all(a is b for a, b in zip(new, st))
+            for k, t in zip(("c", "n", "m"), st):
+                res[pre + "inplace/" + k] = full(t)
+
     # the repairs: reduced granite-8b's prefill and decode steps with the
     # caches' sequence over "model"
     prompt = torch.from_numpy(data["dec/prompt"])
@@ -488,6 +556,14 @@ def _inputs(tmp: str) -> None:
                     leaves_with_path(init_params(
                         rcfg, torch.Generator().manual_seed(3),
                         device="cpu"))})
+    b, h, l, d = CHUNK_B, CHUNK_H, CHUNK_L, CHUNK_D
+    for k, shape in (("q", (b, h, l, d)), ("k", (b, h, l, d)),
+                     ("v", (b, h, l, d)), ("ig", (b, h, l)),
+                     ("c", (b, h, d, d)), ("n", (b, h, d)), ("m", (b, h)),
+                     ("ct", (b, h, l, d))):
+        out["chunk/" + k] = rng.standard_normal(shape, dtype=np.float32)
+    out["chunk/fg"] = -np.log1p(np.exp(-rng.standard_normal(
+        (b, h, l)))).astype(np.float32)   # log-sigmoid of a gate
     out["dec/prompt"] = rng.integers(0, cfg.vocab_size,
                                      (DEC_B, DEC_PROMPT)).astype(np.int32)
     out["dec/next"] = rng.integers(0, cfg.vocab_size,
@@ -885,6 +961,60 @@ def test_sharded_step_where_the_model_axis_does_not_divide_the_heads(
     assert abs(port[key + "/loss"] - want[0]) <= STEP_TOL * abs(want[0])
     assert abs(port[key + "/grad_norm"] - want[1]) <= g_tol * abs(want[1])
     assert parted <= share * n, (parted, n)
+
+
+@pytest.mark.parametrize("key,mesh", XLSTM_MESH_STEPS,
+                         ids=[k for k, _ in XLSTM_MESH_STEPS])
+def test_sharded_xlstm_step_on_other_meshes(runs, key, mesh):
+    """Reduced xlstm-1.3b cut to one period on the (2, 2) mesh (its mLSTM
+    chunks on local shards, batch rows and heads split) against the
+    port's plain step, with xlstm's tolerances."""
+    port = runs["port"]
+    loss, gnorm, lr, plain_p = _plain_repair_step(runs, "xlstm14",
+                                                  "xlstm-1.3b", 8)
+    got_p = {k[len(key + "/new/"):]: v for k, v in port.items()
+             if k.startswith(key + "/new/")}
+    parted, n = _parted(got_p, plain_p, lr)
+    print(f"{key}: loss {abs(port[key + '/loss'] - loss) / abs(loss):.3g}, "
+          f"grad norm {abs(port[key + '/grad_norm'] - gnorm) / gnorm:.3g} "
+          f"relative; {parted} of {n} parameters part by >= lr")
+    assert sorted(got_p) == sorted(plain_p)
+    assert abs(port[key + "/loss"] - loss) <= STEP_TOL * abs(loss)
+    assert abs(port[key + "/grad_norm"] - gnorm) <= XLSTM_GRAD_TOL * gnorm
+    assert parted <= XLSTM_PARTED_SHARE * n, (parted, n)
+
+
+@pytest.mark.parametrize("layout", sorted(CHUNK_LAYOUTS))
+@pytest.mark.parametrize("mesh", CHUNK_MESHES)
+def test_mlstm_chunk_on_local_shards(runs, mesh, layout):
+    """One mLSTM chunk of DTensors (the chunk dim over "model", or batch
+    rows and heads split) against the plain chunk from the same inputs:
+    h and the end state, the gradients of the inputs, and the in-place
+    form writing the DTensor state's own tensors."""
+    from repro_torch.models.xlstm import _mlstm_chunk
+
+    inp, port = runs["inputs"], runs["port"]
+    ins = {k: torch.from_numpy(inp["chunk/" + k]).requires_grad_()
+           for k in ("q", "k", "v", "ig", "fg")}
+    st = tuple(torch.from_numpy(inp["chunk/" + k]) for k in ("c", "n", "m"))
+    h, (c, n, m) = _mlstm_chunk(*ins.values(), st, inplace=False)
+    loss = (h * torch.from_numpy(inp["chunk/ct"])).sum() + c.sum() + n.sum()
+    grads = torch.autograd.grad(loss, list(ins.values()))
+    pre = f"chunk/{mesh}/{layout}/"
+
+    def close(got, want, tol, what):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= tol * scale, (what, err, scale)
+
+    for k, want in (("h", h), ("c", c), ("n", n), ("m", m)):
+        close(port[pre + k], want.detach(), STEP_TOL, k)
+        if k != "h":
+            close(port[pre + "inplace/" + k], want.detach(), STEP_TOL,
+                  "in place " + k)
+    for k, g in zip(ins, grads):
+        close(port[pre + "grad/" + k], g, XLSTM_GRAD_TOL, "grad " + k)
+    assert port[pre + "inplace"]
 
 
 def _plain_decode(runs):
