@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch/CUDA port starts on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DETAIL.json]
-                          [--phases all|kernels|recurrent|train|shard|dryrun|tune]
+                          [--phases all|kernels|recurrent|train|shard|dryrun|tune|examples]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -167,7 +167,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    --device cuda`` in a subprocess, exit 0 (JA001 under sync debug mode on
    llama2-7b's captured step at full width, races over the threaded CUDA
    dispatcher).
-16. A JSON line with every kernel's numbers, then the device line.
+16. The examples (phase 16, after phase 14): the six modules of
+   ``repro_torch.examples`` in process, each through its ``main`` on the
+   card: (a) ``hybrid_cpu_inference``'s lines equal the reference's letter
+   for letter (virtual clock); (b) ``quickstart``'s scheduler line the
+   reference's, its 30 training steps of reduced granite-8b against a CPU
+   run of the same module (first loss within 1e-5, last within the CPU
+   test's 1e-3), their wall time; (c) ``q4_inference``: its kernel section
+   through ``q4_matmul`` on the card against ``q4_matmul_plain`` within the
+   reference's f32 tolerance, 7 matrices quantized, the tuner's 4 calls
+   launching only ``q4_matmul``/``q4_matmul_db`` (5 launches in all,
+   counted from 0), the chosen variant; (d) ``serve_batch`` and
+   ``continuous_serving``: every line the reference's, the generated
+   tokens against a CPU run's (a parting reported at its logit gap, not
+   gated); (e) ``train_100m`` at its full width (llama-100m, 56M
+   parameters, f32) under deterministic algorithms, in a temporary
+   directory: run A ``--steps 125 --uneven-every 25`` straight, run B the
+   same command relaunched on a directory holding A's step-100 checkpoint
+   alone: B's losses of steps 101-125 bitwise A's, its step-125 line
+   equal, every ``uneven counts=`` line the planner's on the pods'
+   simulated speeds; A's steady step, tokens/s, 6·N·D over the step as a
+   share of the f32 peak and peak memory.  No example but
+   ``q4_inference`` launches a kernel, and each is held to 0.
+17. A JSON line with every kernel's numbers, then the device line.
 
 ``--phases kernels`` runs phases 1 and 2 only (every kernel against its
 plain version, with times), then prints the device line: a quick check of
@@ -176,7 +198,7 @@ the recurrent archs' shapes and phase 11; ``--phases train`` runs phases
 1 and 12; ``--phases shard`` runs phases 1 and 13, (b) then timing 3
 plain steps of its own for the ratio; ``--phases dryrun`` runs phases 1
 and 14, with no phase 12 numbers beside (b); ``--phases tune`` runs phases
-1 and 15.
+1 and 15; ``--phases examples`` runs phases 1 and 16.
 
 Every figure of the machine model that the serve lines print (TTFT,
 TPOT, ratio tables, socket splits, ``achieved_bw_frac``, GB/s of the
@@ -198,6 +220,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3039,6 +3062,322 @@ def tune_phase(counts, serve_mod, params, q4, i8, quantize, q4_blocks,
     return out
 
 
+# ------------------------------------------------------------ examples --
+# The reference's printout of the lines on the virtual clock (its examples
+# run on the CPU, letter for letter; no card figure among them)
+EXAMPLE_LINES = {
+    "hybrid_cpu_inference": [
+        "[ultra-125h] prefill 6.08s -> 4.01s (+52%) | decode 13.9 -> 16.0 "
+        "tok/s (+14%)",
+        "[core-12900k] prefill 5.05s -> 3.08s (+64%) | decode 12.1 -> 13.4 "
+        "tok/s (+11%)",
+        "[fig4] P0 ratio trace: 2.66 1.95 1.24 1.03 0.96 0.93 0.88 0.88 0.89 "
+        "0.88 ...",
+        "[fig4] init 5.00 -> settled 0.89 (background load at dispatch ~5 "
+        "absorbed)"],
+    "serve_batch": [
+        "[serve] round 0: split=[4, 4] ratios=[1.35, 0.65]",
+        "[serve] round 1: split=[6, 2] ratios=[1.45, 0.54]",
+        "[serve] round 2: split=[6, 2] ratios=[1.49, 0.51]",
+        "[serve] round 3: split=[6, 2] ratios=[1.5, 0.5]",
+        "[serve] round 4: split=[6, 2] ratios=[1.5, 0.5]",
+        "[serve] done; generated shape: (8, 12)"],
+    "continuous_serving": [
+        "[continuous] routed: replica0=14 replica1=18",
+        "[continuous] prefill ratios: [1.0, 1.0] (same speed)",
+        "[continuous] decode  ratios: [0.5, 1.5] (3x gap)",
+        "[continuous] finished 32/32 requests, 219 tokens in 0.622s (352.2 "
+        "tok/s, goodput 51.46 req/s)",
+        "[continuous] ttft p50=11.05ms p90=21.58ms p99=31.96ms",
+        "[continuous] tpot p50=3.00ms p90=4.63ms p99=6.00ms"],
+}
+QUICKSTART_SCHEDULER = ("[scheduler] static 26.36 ms -> dynamic 15.39 ms "
+                        "(+71%)")
+QUICKSTART_FIRST_TOL = 1e-5   # relative: one forward pass, f32 sums
+QUICKSTART_LAST_TOL = 1e-3    # the CPU test's (tests/test_torch_examples.py)
+Q4_EXAMPLE_LAUNCHES = 1 + 4   # the kernel section's one, the tuner's four
+# (e) llama-100m: run A straight, run B relaunched on A's step-100
+# checkpoint (the example writes one every 100 steps), each with these
+# arguments.  The step is host-bound at ~350-430 ms on the card's host
+# (PERF.md), so 300 + 100 steps would take ~180 s and carry the script
+# past its 1200 s; 125 + 25 steps keep every check.
+EXAMPLE_TRAIN_STEPS = 125
+EXAMPLE_TRAIN_EVERY = 25          # every printed step an uneven-DP step
+EXAMPLE_TRAIN_ARGV = ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                      "--uneven-every", str(EXAMPLE_TRAIN_EVERY)]
+EXAMPLE_TRAIN_STOP = 100
+EXAMPLE_TRAIN_TOKENS = 16 * 128   # a step's batch
+EXAMPLE_TRAIN_LINE = re.compile(r"\[100m\] step +(\d+) loss=(\S+)"
+                                r"(?: uneven counts=(.*))?")
+
+
+def run_example(main, argv, **kwargs) -> tuple:
+    """An example's ``main(argv)`` with its printout captured and echoed;
+    returns (lines, main's result)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv, **kwargs)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        say(f"[smoke]   {line}")
+    return lines, result
+
+
+def expect_lines(name: str, lines: list) -> None:
+    if lines != EXAMPLE_LINES[name]:
+        raise AssertionError(f"{name}: lines {lines} differ from the "
+                             f"reference's {EXAMPLE_LINES[name]}")
+
+
+def expect_no_launch(counts, what: str) -> None:
+    got = counts.read()
+    if any(got.values()):
+        raise AssertionError(f"{what}: no kernel is on its path, yet {got} "
+                             f"launched")
+
+
+def token_gap(cfg, params, prompt, a, b) -> float:
+    """Where two generations of one prompt first part: |logit(a) -
+    logit(b)| / max|logit| at the first one's context there (one plain
+    forward on the CPU)."""
+    from repro_torch.models import forward
+
+    i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    ctx = np.concatenate([np.asarray(prompt, np.int64),
+                          np.asarray(a[:i], np.int64)])
+    with torch.no_grad():
+        lg = forward(cfg, params, torch.as_tensor(ctx[None, :])).logits[0, -1]
+    return float((lg[a[i]] - lg[b[i]]).abs() / lg.abs().max())
+
+
+def example_quickstart(counts, ex) -> dict:
+    """(b) The scheduler line against the reference's; the card's 30
+    training steps against a CPU run of the same module (the same seeded
+    weights): the first loss within 1e-5, the last within the CPU test's
+    tolerance; the wall time of the 30 steps."""
+    counts.reset()
+    lines, card = run_example(ex.main, ["--device", "cuda"])
+    expect_no_launch(counts, "quickstart")
+    cpu = ex.demo_training("cpu")
+    first, last = card["training"]["losses"][0], card["training"]["losses"][-1]
+    want_first, want_last = cpu["losses"][0], cpu["losses"][-1]
+    first_rel = abs(first - want_first) / abs(want_first)
+    last_rel = abs(last - want_last) / abs(want_last)
+    out = {"lines": lines, "losses": card["training"]["losses"],
+           "cpu_losses": cpu["losses"], "first_rel": first_rel,
+           "last_rel": last_rel, "steps_s": card["training"]["seconds"],
+           "cpu_steps_s": cpu["seconds"]}
+    say(f"[smoke] quickstart: scheduler line the reference's "
+        f"{lines[0] == QUICKSTART_SCHEDULER}; reduced granite-8b 30 steps on "
+        f"the card in {out['steps_s']:.2f} s (CPU {out['cpu_steps_s']:.2f} "
+        f"s), loss {first:.6f} -> {last:.6f}, against the CPU's "
+        f"{first_rel:.2e} / {last_rel:.2e} relative (tolerances "
+        f"{QUICKSTART_FIRST_TOL:g} / {QUICKSTART_LAST_TOL:g})")
+    if (lines[0] != QUICKSTART_SCHEDULER or first_rel > QUICKSTART_FIRST_TOL
+            or last_rel > QUICKSTART_LAST_TOL):
+        raise AssertionError(f"quickstart: {out}")
+    return out
+
+
+def example_q4(counts, ex, q4, q4_blocks) -> dict:
+    """(c) The kernel section on the card: ``q4_matmul`` against
+    ``q4_matmul_plain`` on the same inputs within the reference's f32
+    tolerance; the tuner's four calls launch only the two Q4 entries; 7
+    matrices quantized."""
+    counts.reset()
+    lines, out = run_example(ex.main, ["--device", "cuda"])
+    launches = counts.read()
+    x, qw, y = out["x"], out["qw"], out["y_kernel"]
+    k = x.shape[1]
+    plain = q4.q4_matmul_plain(x, qw, q4_blocks(k)[2])
+    err = float((y - plain).abs().max())
+    within = bool(torch.all((y - plain).abs()
+                            <= F32_TOL * k + F32_TOL * plain.abs()))
+    res = {"lines": lines, "launches": launches, "n_quantized":
+           out["n_quantized"], "variant": list(out["variant"]),
+           "route": out["route"], "max_abs_err": err,
+           "oracle_err": out["kernel_err"], "quant_rel": out["quant_rel"],
+           "agree": out["agree"]}
+    say(f"[smoke] q4_inference on the card: {out['n_quantized']} matrices "
+        f"quantized; q4_matmul at (8, {k}) x ({qw.out_features}, {k}) "
+        f"against q4_matmul_plain: max abs err {err:.3g} (within rtol "
+        f"{F32_TOL:g}, atol {F32_TOL:g}·K: {within}); launches {launches}; "
+        f"the tuner chose {out['variant']}")
+    if not (out["route"] == "cuda" and within and out["n_quantized"] == 7
+            and launches["q4_matmul"] >= 1 and launches["int8_gemm"] == 0
+            and launches["q4_matmul"] + launches["q4_matmul_db"]
+            == Q4_EXAMPLE_LAUNCHES
+            and tuple(out["variant"]) in (("direct",), ("ring",))):
+        raise AssertionError(f"q4_inference: {res}")
+    return res
+
+
+def example_serving(counts, ex, name: str) -> dict:
+    """(d) A serving example on the card: its lines the reference's; its
+    tokens against a CPU run's (a parting reported at its logit gap)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.examples import seeded_params
+
+    t0 = time.perf_counter()
+    counts.reset()
+    lines, card = run_example(ex.main, ["--device", "cuda"])
+    expect_no_launch(counts, name)
+    expect_lines(name, lines)
+    cpu = ex.run("cpu")
+    if name == "serve_batch":
+        pairs = [(p[:8], a[8:].tolist(), b[8:].tolist())
+                 for p, a, b in zip(card["tokens"], card["tokens"],
+                                    cpu["tokens"])]
+    else:
+        pairs = [(r.prompt, list(r.generated), list(s.generated))
+                 for r, s in zip(card["requests"], cpu["requests"])]
+    parted = [(p, a, b) for p, a, b in pairs if a != b]
+    gaps = []
+    if parted:
+        cfg = reduced_config("granite-8b")
+        params = seeded_params(cfg, "cpu")
+        gaps = [token_gap(cfg, params, p, a, b) for p, a, b in parted]
+    out = {"lines": lines, "sequences": len(pairs), "parted": len(parted),
+           "gaps": gaps, "wall_s": time.perf_counter() - t0}
+    say(f"[smoke] {name}: the virtual-clock lines the reference's; "
+        f"{len(pairs) - len(parted)} of {len(pairs)} generations equal to "
+        f"the CPU's" + (f", the rest part at logit gaps "
+                        f"{[f'{g:.2e}' for g in gaps]}" if gaps else "")
+        + f" [{out['wall_s']:.1f} s]")
+    return out
+
+
+def example_train(counts, ex) -> dict:
+    """(e) llama-100m at full width (f32, 56M parameters) under
+    deterministic algorithms: run A ``--steps 125 --uneven-every 25``
+    straight, writing its checkpoint at 100; run B the same command
+    relaunched on a directory that holds that checkpoint alone, as A would
+    have left it had it stopped there.  B resumes at 100: its losses of
+    steps 101-125 and its line bitwise A's; every
+    ``uneven counts=`` line the planner's on the pods' simulated speeds;
+    A's steady step, tokens/s, 6·N·D over the step against the f32 peak,
+    peak memory.  (A stop right after a checkpoint
+    and the relaunch are held on the CPU by
+    ``tests/test_torch_examples_train.py``.)"""
+    t0 = time.perf_counter()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, d in (("A", "a"), ("B", "b")):
+                if name == "B":   # hard links: nothing is copied
+                    stop = f"step_{EXAMPLE_TRAIN_STOP:08d}"
+                    shutil.copytree(f"{tmp}/a/{stop}", f"{tmp}/b/{stop}",
+                                    copy_function=os.link)
+                args = ex.build_parser().parse_args(
+                    EXAMPLE_TRAIN_ARGV + ["--ckpt-dir", f"{tmp}/{d}",
+                                          "--device", "cuda"])
+                record, lines = [], []
+                for line in ex.train(args, record=record):
+                    say(f"[smoke]   {name}: {line}")
+                    lines.append(line)
+                runs[name] = {"lines": lines, "record": record}
+                if name == "A":
+                    peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    expect_no_launch(counts, "train_100m")
+    a, b = runs["A"], runs["B"]
+    losses_a = [l for _, l, _ in a["record"]]
+    resumed_equal = ([s for s, _, _ in b["record"]]
+                     == list(range(EXAMPLE_TRAIN_STOP + 1,
+                                   EXAMPLE_TRAIN_STEPS + 1))
+                     and [l for _, l, _ in b["record"]]
+                     == losses_a[EXAMPLE_TRAIN_STOP:])
+    parsed = {k: [m.groups() for m in map(EXAMPLE_TRAIN_LINE.fullmatch,
+                                          r["lines"]) if m]
+              for k, r in runs.items()}
+    lines_equal = (parsed["B"] == [g for g in parsed["A"]
+                                   if int(g[0]) > EXAMPLE_TRAIN_STOP])
+    # the counts a fresh planner gives (each run plans afresh from its
+    # first step), fed back with the pods' simulated times
+    from repro_torch.runtime import DeviceRuntime, UnevenBatchPlanner
+
+    counts_ok = True
+    for k, start in (("A", 0), ("B", EXAMPLE_TRAIN_STOP)):
+        planner = UnevenBatchPlanner(DeviceRuntime(n_slices=4, alpha=0.3))
+        want = {}
+        for step in range(start + 1, EXAMPLE_TRAIN_STEPS + 1):
+            if step % EXAMPLE_TRAIN_EVERY == 0:
+                plan = planner.plan(4)
+                planner.report(plan, plan.counts / ex.POD_SPEED)
+                want[step] = str(plan.counts.tolist())
+        got = {int(s): c for s, _, c in parsed[k] if c is not None}
+        counts_ok &= all(want[s] == c for s, c in got.items()) and bool(got)
+    resumed_line = b["lines"][1] == (f"[100m] resumed at step "
+                                     f"{EXAMPLE_TRAIN_STOP}")
+    step_s = [s for st, _, s in a["record"] if st > 25]
+    steady = sorted(step_s)[len(step_s) // 2]
+    n_params = ex.CFG.param_count()
+    model_flop = 6.0 * n_params * EXAMPLE_TRAIN_TOKENS
+    out = {"lines": a["lines"], "losses": losses_a, "step_s": step_s,
+           "steady_step_s": steady,
+           "tokens_per_s": EXAMPLE_TRAIN_TOKENS / steady,
+           "n_params": n_params, "model_flop_per_step": model_flop,
+           "share_of_f32_peak": model_flop / steady / F32_FLOP_PER_S,
+           "peak_bytes": peak, "resumed_bitwise": resumed_equal,
+           "lines_equal": lines_equal,
+           "uneven_counts_ok": counts_ok,
+           "wall_s": time.perf_counter() - t0}
+    say(f"[smoke] llama-100m ({n_params / 1e6:.1f}M parameters, f32), "
+        f"{EXAMPLE_TRAIN_ARGV}, deterministic algorithms: A straight, B "
+        f"relaunched on A's step-{EXAMPLE_TRAIN_STOP} checkpoint: losses of "
+        f"steps {EXAMPLE_TRAIN_STOP + 1}-{EXAMPLE_TRAIN_STEPS} bitwise A's "
+        f"{resumed_equal}, lines equal {lines_equal}, uneven counts the "
+        f"planner's {counts_ok}")
+    say(f"[smoke] llama-100m run A: steady step {steady * 1e3:.2f} ms "
+        f"(median of steps 26-{EXAMPLE_TRAIN_STEPS}), "
+        f"{out['tokens_per_s']:.0f} tokens/s; "
+        f"6·N·D = {model_flop / 1e12:.3f} TFLOP a step: "
+        f"{out['share_of_f32_peak']:.4f} of the card's f32 peak "
+        f"({F32_FLOP_PER_S / 1e12:.0f} TFLOP/s); peak "
+        f"{peak / 2**30:.2f} GiB [{out['wall_s']:.1f} s]")
+    if not (resumed_equal and lines_equal and counts_ok
+            and resumed_line
+            and all(math.isfinite(l) for l in losses_a)):
+        raise AssertionError(f"train_100m: {out}")
+    return out
+
+
+def examples_phase(counts, q4, q4_blocks) -> dict:
+    """Phase 16: the six examples of ``repro_torch.examples`` in process,
+    on the card (and on the CPU where their tokens or losses are held to
+    it)."""
+    from repro_torch.examples import (continuous_serving, hybrid_cpu_inference,
+                                      q4_inference, quickstart, serve_batch,
+                                      train_100m)
+
+    t0 = time.perf_counter()
+    counts.reset()
+    lines, _ = run_example(hybrid_cpu_inference.main, ["--device", "cuda"])
+    expect_no_launch(counts, "hybrid_cpu_inference")
+    expect_lines("hybrid_cpu_inference", lines)
+    say("[smoke] hybrid_cpu_inference: its lines the reference's (virtual "
+        "clock)")
+    out = {"hybrid_cpu_inference": {"lines": lines},
+           "quickstart": example_quickstart(counts, quickstart),
+           "q4_inference": example_q4(counts, q4_inference, q4, q4_blocks),
+           "serve_batch": example_serving(counts, serve_batch, "serve_batch"),
+           "continuous_serving": example_serving(counts, continuous_serving,
+                                                 "continuous_serving"),
+           "train_100m": example_train(counts, train_100m)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    say(f"[smoke] examples phase: {out['wall_s']:.1f} s")
+    return out
+
+
 def variant_steps(tune: dict, kernel: str) -> dict:
     """Each launch variant's time per decode step's worth of launches (225
     at M = 4) and its bound, from phase 15 (a)."""
@@ -3122,7 +3461,7 @@ def main(argv=None) -> int:
                     help="also write every measurement to this JSON file")
     ap.add_argument("--phases",
                     choices=("all", "kernels", "recurrent", "train",
-                             "shard", "dryrun", "tune"),
+                             "shard", "dryrun", "tune", "examples"),
                     default="all",
                     help="kernels: only the header and every kernel "
                          "against its plain version, with times (a quick "
@@ -3130,7 +3469,8 @@ def main(argv=None) -> int:
                          "the kernels at the recurrent archs' shapes and "
                          "phase 11; train: the header and phase 12; shard: "
                          "the header and phase 13; dryrun: the header and "
-                         "phase 14; tune: the header and phase 15; all "
+                         "phase 14; tune: the header and phase 15; "
+                         "examples: the header and phase 16; all "
                          "(default): every phase")
     args = ap.parse_args(argv)
     # the resume check runs under deterministic algorithms, whose cuBLAS
@@ -3201,6 +3541,17 @@ def main(argv=None) -> int:
             Path(args.out).write_text(json.dumps(
                 {"card": head["card"], "build_s": head["build_s"],
                  "tune": tune}, indent=1))
+        say(device_line())
+        return 0
+    if args.phases == "examples":
+        ex = examples_phase(counts, q4, q4_blocks)
+        say(f"[smoke] examples only: {time.perf_counter() - t_all:.1f} s on "
+            f"{head['card']}")
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(
+                {"card": head["card"], "build_s": head["build_s"],
+                 "examples": ex}, indent=1))
         say(device_line())
         return 0
     if args.phases == "recurrent":
@@ -3292,6 +3643,7 @@ def main(argv=None) -> int:
     sharded = shard_phase(counts, trained["olmo-1b"]["steady_step_s"])
     dry = dryrun_phase(dry_run, {
         k: trained["olmo-1b"][k] for k in ("peak_bytes", "steady_step_s")})
+    examples = examples_phase(counts, q4, q4_blocks)
     paths = {"q4_matmul": {}, "q4_matmul_db": {}, "int8_gemm": {}}
     paths["q4_matmul_db"]["topology dual-125h (captured and uncaptured, "
                           "each)"] = topo["q4 dual-125h"]["launches"]
@@ -3323,6 +3675,10 @@ def main(argv=None) -> int:
             if n:
                 paths[name][f"{mode} (eager shards over 4 threads, tuned, "
                             f"each run)"] = n
+    for name in ("q4_matmul", "q4_matmul_db"):
+        paths[name]["q4_inference example (reduced granite-8b: its kernel "
+                    "section and the tuner's 4 calls)"] = \
+            examples["q4_inference"]["launches"][name]
     entries = kernel_entries(phase2, phase3["launches"], p2i8,
                              p3i8["launches"], paths, tune)
     say(f"[smoke] total {time.perf_counter() - t_all:.1f} s on {head['card']}")
@@ -3352,7 +3708,7 @@ def main(argv=None) -> int:
                   "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
                   "recurrent": rec, "recurrent_kernels": p2rec,
                   "train": trained, "shard": sharded, "dryrun": dry,
-                  "tune": tune}
+                  "tune": tune, "examples": examples}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(detail, indent=1))
     say(json.dumps({"kernels": entries}))

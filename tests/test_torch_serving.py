@@ -249,8 +249,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 40
-    bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f)
-                                            & {"jax", "jaxlib", "repro"})
+    bad = {str(f.relative_to(ROOT)): sorted(
+               _imported_roots(f) & {"jax", "jaxlib", "repro", "benchmarks"})
            for f in files}
     assert {f: r for f, r in bad.items() if r} == {}
 
