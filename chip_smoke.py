@@ -833,109 +833,62 @@ def weight_bytes(trunk) -> int:
     return total
 
 
-class FeedbackSplit:
-    """The cost-tape feedback of a topology trunk split by the host clock,
-    by wrapping methods on the instances: the inner per-socket replays
-    (each socket dispatcher's ``dispatch``), the outer socket-level report
-    (the rest of the two-level replay, ``_replay_topology``), and the
-    offset refresh."""
-
-    KEYS = ("inner_ms", "outer_ms", "refresh_ms")
-
-    def __init__(self, trunk):
-        ctx = trunk._compiled()
-        self.acc = {"inner": 0.0, "replay": 0.0, "refresh": 0.0}
-        self.targets = ([(d, "dispatch", "inner")
-                         for d in ctx.dispatcher.socket_dispatchers]
-                        + [(ctx, "_replay_topology", "replay"),
-                           (ctx, "refresh", "refresh")])
-        for obj, attr, name in self.targets:
-            setattr(obj, attr, self._timed(name, getattr(obj, attr)))
-
-    def _timed(self, name, fn):
-        def timed(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                self.acc[name] += time.perf_counter() - t0
-        return timed
-
-    def reset(self) -> None:
-        self.acc = dict.fromkeys(self.acc, 0.0)
-
-    def read(self) -> dict:
-        a = self.acc
-        return {"inner_ms": a["inner"] * 1e3,
-                "outer_ms": (a["replay"] - a["inner"]) * 1e3,
-                "refresh_ms": a["refresh"] * 1e3}
-
-    def remove(self) -> None:
-        for obj, attr, _ in self.targets:
-            delattr(obj, attr)
-
-
 class StepParts:
-    """The parts of an engine's decode step, timed by wrapping its methods
-    on the instance: the step body (the graph replay when captured, with
-    its two small input copies) by CUDA events and by the host time it
-    takes to enqueue; the pick on the host (its copy to the host waits for
-    the body); and the cost-tape feedback with the offset refresh on the
-    host (with ``split``, a :class:`FeedbackSplit`, that feedback's parts
-    too)."""
+    """The parts of an engine's decode step, read from the engine's own
+    wall spans (a tracer installed in ``repro_torch.core.events.WALL``):
+    the replay by CUDA events (``decode.launch``'s ``device_ms``) and by
+    the host time its input copies and launch take to enqueue; the pick on
+    the host (its copy to the host waits for the body); the cost-tape
+    feedback with the offset refresh on the host, and with ``split`` that
+    feedback's parts (the inner per-socket replays and the outer
+    socket-level report of a topology trunk, ``feedback.replay``'s args,
+    and the refresh, ``feedback.plan`` + ``feedback.upload``)."""
 
     KEYS = ("body_ms", "enqueue_ms", "pick_ms", "feedback_ms")
+    SPLIT = ("inner_ms", "outer_ms", "refresh_ms")
 
-    def __init__(self, engine, split=None):
-        self.engine, self.rows, self.cur = engine, [], {}
-        self.split = split
-        if split is not None:
-            self.KEYS = self.KEYS + split.KEYS
-        decode, sample, feedback = (engine._decode, engine._sample,
-                                    engine._feedback)
+    def __init__(self, engine, split: bool = False):
+        from repro_torch.core import events
+        from repro_torch.obs import SpanTracer
 
-        def timed_decode():
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            t0 = time.perf_counter()
-            out = decode()
-            self.cur["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
-            e1.record()
-            self.cur["events"] = (e0, e1)
-            return out
-
-        def timed_sample(logits, phase):
-            t0 = time.perf_counter()
-            out = sample(logits, phase)
-            self.cur["pick_ms"] = (time.perf_counter() - t0) * 1e3
-            return out
-
-        def timed_feedback(recs):
-            if split is not None:
-                split.reset()
-            t0 = time.perf_counter()
-            feedback(recs)
-            self.cur["feedback_ms"] = (time.perf_counter() - t0) * 1e3
-            if split is not None:
-                self.cur.update(split.read())
-
-        engine._decode, engine._sample, engine._feedback = (
-            timed_decode, timed_sample, timed_feedback)
+        self.rows, self.split, self.mark = [], split, 0
+        if split:
+            self.KEYS = self.KEYS + self.SPLIT
+        self.tracer = SpanTracer()
+        self._prev = events.install_wall(self.tracer)
 
     def start(self) -> None:
-        self.cur = {}
+        self.mark = len(self.tracer.wall)
 
     def keep(self) -> None:
-        e0, e1 = self.cur.pop("events")
-        self.cur["body_ms"] = e0.elapsed_time(e1)
-        self.rows.append(self.cur)
+        spans = sorted(self.tracer.wall_spans()[self.mark:],
+                       key=lambda sp: sp.start)     # parents first
+        inside = {next(sp.sid for sp in spans if sp.name == "decode")}
+        for sp in spans:
+            if sp.parent in inside:
+                inside.add(sp.sid)
+        lane = {}
+        for sp in spans:
+            if sp.parent in inside:
+                lane.setdefault(sp.name, []).append(sp)
+
+        def ms(name):
+            return sum(sp.ms for sp in lane.get(name, ()))
+
+        row = {"body_ms": lane["decode.launch"][0].args["device_ms"],
+               "enqueue_ms": ms("decode.inputs") + ms("decode.launch"),
+               "pick_ms": ms("pick"), "feedback_ms": ms("feedback")}
+        if self.split:
+            rep = lane["feedback.replay"]
+            row.update(inner_ms=sum(sp.args["inner_ms"] for sp in rep),
+                       outer_ms=sum(sp.args["outer_ms"] for sp in rep),
+                       refresh_ms=ms("feedback.plan") + ms("feedback.upload"))
+        self.rows.append(row)
 
     def remove(self) -> None:
-        for name in ("_decode", "_sample", "_feedback"):
-            delattr(self.engine, name)
-        if self.split is not None:
-            self.split.remove()
+        from repro_torch.core import events
+
+        events.install_wall(self._prev)
 
     def medians(self) -> dict:
         return {k: float(np.median([r[k] for r in self.rows]))
@@ -959,8 +912,7 @@ def decode_wall(run, Request, np_rng, label: str) -> dict:
             max_new_tokens=32 if engine.captured else 16,
             arrival_time=engine.now))
     topo = engine.topology is not None and engine.placement is not None
-    parts = StepParts(engine, FeedbackSplit(engine.balanced_trunk)
-                      if topo and engine.captured else None)
+    parts = StepParts(engine, split=topo and engine.captured)
     times = []
     try:
         while engine.has_work:
@@ -988,7 +940,7 @@ def decode_wall(run, Request, np_rng, label: str) -> dict:
         f"{med['feedback_ms']:.2f} ms"
         + (f" (inner per-socket replays {med['inner_ms']:.2f}, outer socket "
            f"report {med['outer_ms']:.2f}, refresh {med['refresh_ms']:.2f})"
-           if parts.split is not None else "")
+           if parts.split else "")
         + f"; rest {other:.2f} ms; weights "
         f"{wbytes / 1e9:.3f} GB per step -> {wbytes / step / 1e9:.1f} GB/s = "
         f"{wbytes / step / HBM_BYTES_PER_S:.4f} of 3.35 TB/s")

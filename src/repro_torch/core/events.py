@@ -39,8 +39,10 @@ __all__ = [
     "Event",
     "TRACER",
     "RECORDER",
+    "WALL",
     "install",
     "install_recorder",
+    "install_wall",
     "current_task",
     "push_task",
     "pop_task",
@@ -273,3 +275,32 @@ def record(kind: str, key: str, t: float = 0.0, **payload) -> None:
     if r is None:
         return
     r.record(kind, key, t, payload)
+
+
+# -------------------------------------------------------------- wall spans --
+# The wall-clock channel: spans and counters stamped on the host's clock
+# where the serving path does its work (the engine's iteration and lanes,
+# the decode step's launch, the cost-tape feedback), kept by a
+# :class:`~repro_torch.obs.trace.SpanTracer` (``begin``/``end``, its parent
+# stack, ``request_phase``, ``sample``).  A slot of its own beside
+# ``TRACER``: a tracer installed here turns on no virtual-clock hook and
+# builds no access event, so the feedback it times is not slowed by the
+# events of the records it replays.  Call sites read the slot once and call
+# the tracer only when one is installed, which on the disabled path is one
+# global load and a ``None`` check, with no clock read and no payload::
+#
+#     w = _ev.WALL
+#     sp = w and w.begin("feedback", records=len(recs))
+#     ...
+#     if sp:
+#         w.end(sp)
+WALL = None
+
+
+def install_wall(tracer):
+    """Install a wall-span tracer (or ``None`` to disable); returns the
+    previous one."""
+    global WALL
+    prev = WALL
+    WALL = tracer
+    return prev

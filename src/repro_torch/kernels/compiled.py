@@ -45,6 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import events as _ev
 from repro_torch.device import resolve_device
 from repro_torch.quant.int8 import quantize_u8_dynamic
 from repro_torch.quant.q4 import BYTES_PER_ELEM, QuantizedLinear
@@ -131,6 +132,7 @@ class CompiledDispatcher:
         # spec_id -> the weight object the trunk's placement registered
         self._weights: Dict[int, object] = {}
         self._tape: Optional[list] = None
+        self._inner_ns = 0             # a traced replay's per-socket share
         # boundary tensor id -> (tensor, shard sizes): every projection of
         # one spec in a step reads one boundary tensor, so its sizes are
         # computed once per step (inside it), not once per launch
@@ -277,12 +279,21 @@ class CompiledDispatcher:
         virtual pools — per-shard modelled times feed the Eq. 2 EMA
         updates, bytes/busy accounting accrues — then refresh the offset
         snapshot for the next step.  The records' device shard sizes are
-        copied to the host in one transfer."""
+        copied to the host in one transfer.  Wall spans: ``feedback.fetch``
+        (that copy), ``feedback.replay`` (with a topology, its
+        ``inner_ms`` per-socket replays and ``outer_ms`` rest), then the
+        refresh's."""
         records = list(records)
         if not records:
             return self.refresh()
+        w = _ev.WALL
+        sp = w and w.begin("feedback.fetch")
         sizes = torch.stack([torch.as_tensor(r["sizes"])
                              for r in records]).cpu().numpy()
+        if sp:
+            w.end(sp)
+            sp = w.begin("feedback.replay", records=len(records))
+            t0, self._inner_ns = w.now(), 0
         for rec, counts in zip(records, sizes.astype(np.int64)):
             spec = self._specs[int(rec["spec"])]
             m = int(rec["m"])
@@ -294,6 +305,13 @@ class CompiledDispatcher:
                 self._replay_topology(spec, m, counts, update)
             else:
                 self._replay_flat(spec, m, counts, update)
+        if sp:
+            if self._topo:
+                inner = self._inner_ns * 1e-6
+                w.end(sp, inner_ms=inner,
+                      outer_ms=(w.now() - t0) * 1e-6 - inner)
+            else:
+                w.end(sp)
         return self.refresh()
 
     def _replay_flat(self, spec: CompiledSpec, m: int, counts: np.ndarray,
@@ -336,6 +354,8 @@ class CompiledDispatcher:
         placement = topo.placement_for(self._weights.get(spec.spec_id),
                                        spec.n)
         times = np.zeros(topo.n_sockets)
+        w = _ev.WALL
+        t0 = w and w.now()
         lo = 0
         for s, c in enumerate(socket_counts):
             hi = lo + int(c)
@@ -348,6 +368,8 @@ class CompiledDispatcher:
                               granularity=spec.granularity))
                 times[s] = st.makespan
             lo = hi
+        if w is not None:
+            self._inner_ns += w.now() - t0
         bal = topo._balancer(kspec)
         plan = Plan(counts=socket_counts, key=kspec.table_key,
                     granularity=spec.granularity)

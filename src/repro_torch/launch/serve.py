@@ -36,7 +36,9 @@ traffic with a mid-run failure window; ``--fleet-policy`` picks learned,
 round-robin or static routing and ``--fleet-admission`` adds the SLO-aware
 front door.  ``--trace``, ``--metrics`` and ``--flight-recorder`` write a
 Perfetto trace, the run's metrics and the decision ring of the virtual
-clock.
+clock; with ``--machine wall`` the trace also holds the engine's wall
+spans (its iterations, lanes, decode launches and feedback, on the host's
+clock; see :class:`~repro_torch.serving.ContinuousBatchingEngine`).
 
 ``--arch`` takes every architecture of the zoo (granite-8b, the default,
 as in the reference), the recurrent ones (jamba's mamba layers, xlstm's
@@ -163,7 +165,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write a Chrome/Perfetto trace_event JSON of the "
                          "run: spans on the virtual clock at every "
                          "balancing level plus ratio / bandwidth / "
-                         "capacity counter tracks")
+                         "capacity counter tracks; with --machine wall "
+                         "also the engine's wall-clock spans")
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="write run metrics (TTFT/TPOT histograms, "
                          "goodput): Prometheus text exposition, or a JSON "
@@ -565,11 +568,15 @@ class Observers:
     def __init__(self, args):
         self.args = args
         self.tracer = self.recorder = self.registry = None
-        self._prev_tracer = self._prev_recorder = None
+        self._prev_tracer = self._prev_recorder = self._prev_wall = None
+        self.wall = False
         if args.trace:
             from repro_torch.obs import SpanTracer
             self.tracer = SpanTracer()
             self._prev_tracer = _ev.install(self.tracer)
+            self.wall = args.machine == "wall"
+            if self.wall:
+                self._prev_wall = _ev.install_wall(self.tracer)
         if args.flight_recorder:
             from repro_torch.obs import FlightRecorder
             self.recorder = FlightRecorder(
@@ -585,11 +592,15 @@ class Observers:
         args, lines = self.args, []
         if self.tracer is not None:
             _ev.install(self._prev_tracer)
+            if self.wall:
+                _ev.install_wall(self._prev_wall)
             self.tracer.write(args.trace)
             lines.append(f"[serve] wrote trace to {args.trace} "
                          f"({self.tracer.n_spans} spans, "
                          f"{self.tracer.n_counters} counter samples, "
-                         f"{self.tracer.n_instants} instants)")
+                         f"{self.tracer.n_instants} instants"
+                         + (f", {len(self.tracer.wall)} wall spans"
+                            if self.wall else "") + ")")
         if self.recorder is not None:
             _ev.install_recorder(self._prev_recorder)
             if self.recorder.last_dump is None:

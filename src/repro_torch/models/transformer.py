@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import events as _ev
 from repro_torch.device import resolve_device
 from repro_torch.sharding.specs import (activation_sharding, constrain,
                                         current_mesh, gather_fsdp,
@@ -203,15 +204,22 @@ def _mix(cfg, mixer, p, h, positions, state, proj_attn, rowwise):
 
 
 def _apply_layer(cfg, mixer, ffn, p, x, positions, state, capacity,
-                 proj_attn=None, proj_ffn=None, rowwise=False):
+                 proj_attn=None, proj_ffn=None, rowwise=False, layer=0):
+    # wall spans: the host's time to issue the mixer and the FFN, where
+    # this runs in Python (not inside a replayed CUDA graph)
+    w = _ev.WALL
+    sp = w and w.begin(mixer, layer=layer)
     h = _norm(cfg, p["norm1"], x, rowwise)
     mix, new_state = _mix(cfg, mixer, p["mixer"], h, positions, state,
                           proj_attn, rowwise)
     # under a mesh the mixer's and the FFN's outputs are partial sums over
     # "model": summed here, in their own dtype, into the residual's layout
     x = x + constrain(mix, ("dp", None, None))
+    if sp:
+        w.end(sp)
     aux = None
     if ffn != "none":
+        sp = w and w.begin("moe" if ffn == "moe" else "mlp", layer=layer)
         h2 = _norm(cfg, p["norm2"], x, rowwise)
         if ffn == "moe":
             # the rows route together: they share the experts' capacity
@@ -219,6 +227,8 @@ def _apply_layer(cfg, mixer, ffn, p, x, positions, state, capacity,
         else:
             y = mlp_fwd(cfg, p["ffn"], h2, proj=proj_ffn)
         x = x + constrain(y, ("dp", None, None))
+        if sp:
+            w.end(sp)
     return x, new_state, aux
 
 
@@ -309,7 +319,7 @@ def forward(
                                            offsets=trunk_offsets, plain=plain)
             x, new_st, aux = _apply_layer(cfg, mixer, ffn, p_j, x, positions,
                                           st_j, capacity, proj_attn, proj_ffn,
-                                          rowwise)
+                                          rowwise, r * len(period) + j)
             # under a mesh: batch over the data axes, replicated over model
             x = constrain(x, ("dp", None, None))
             if have_state and mixer == "attn":

@@ -4,7 +4,10 @@ Three independent parts, all publishing through the :mod:`repro_torch.core.event
 shim so instrumented call sites stay a single global load when disabled:
 
 * :class:`SpanTracer` (:mod:`repro_torch.obs.trace`) — spans and counter tracks on
-  the shared virtual clock, exported as Chrome/Perfetto ``trace_event`` JSON.
+  the shared virtual clock, exported as Chrome/Perfetto ``trace_event`` JSON;
+  installed with ``install_wall`` it also keeps the serving path's wall
+  spans on the profiler's clock, so a profile's device operations lie
+  beside them.
 * :class:`MetricsRegistry` (:mod:`repro_torch.obs.metrics`) — counters, gauges and
   explicit-bucket histograms with Prometheus text exposition and a one-shot
   JSON dump.

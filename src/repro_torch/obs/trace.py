@@ -17,6 +17,19 @@ so a fixed-seed run produces a byte-identical trace: virtual execution is
 single-threaded, ids are assigned in first-seen order, and the JSON is
 dumped with sorted keys and canonical separators.
 
+**Wall spans.**  The same tracer, installed with
+:func:`repro_torch.core.events.install_wall`, also keeps spans and counter
+samples on the host's clock (:meth:`begin`/:meth:`end`, a parent stack,
+:meth:`request_phase`, :meth:`sample`): where the serving engine, its
+decode step and its cost-tape feedback spend their time, whether or not a
+cost model drives the engine.  They are stamped in ns on the clock that
+``torch.profiler`` stamps its events with (:func:`wall_ns`), so they lie
+beside a profile's host ranges and device operations, and are kept in
+memory (:meth:`wall_spans`) until :meth:`write` puts them in a process of
+their own, ``wall``, with times from the first stamp (the trace's
+``otherData.wall_origin_ns``).  A trace with no wall span is byte for byte
+what it was without them.
+
 Export with :meth:`write` and open the file at https://ui.perfetto.dev (or
 ``chrome://tracing``).  :func:`validate_trace` checks the schema the way the
 CI smoke job does.
@@ -25,11 +38,36 @@ CI smoke job does.
 from __future__ import annotations
 
 import json
-from typing import Optional
+import time
+from typing import NamedTuple, Optional
 
-__all__ = ["SpanTracer", "validate_trace"]
+__all__ = ["SpanTracer", "WallSpan", "validate_trace", "wall_ns"]
 
 _ALLOWED_PH = {"X", "C", "i", "M"}
+
+
+def wall_ns() -> int:
+    """Now, in ns on the profiler's clock: ``torch.profiler`` converts its
+    host and device timestamps to Unix-epoch ns, which this reads."""
+    return time.time_ns()  # lint: allow(RL001) the wall spans' own clock
+
+
+class WallSpan(NamedTuple):
+    """One closed wall span: ``start``/``end`` in ns on :func:`wall_ns`'s
+    clock, ``parent`` the enclosing span's ``sid`` (0: none), ``request``
+    the request id where one applies."""
+
+    sid: int
+    parent: int
+    name: str
+    start: int
+    end: int
+    request: Optional[int] = None
+    args: Optional[dict] = None
+
+    @property
+    def ms(self) -> float:
+        return (self.end - self.start) * 1e-6
 
 
 def _us(t: float) -> float:
@@ -55,6 +93,12 @@ class SpanTracer:
         self.n_spans = 0
         self.n_counters = 0
         self.n_instants = 0
+        self.wall: list[WallSpan] = []        # closed wall spans, by end
+        self.samples: list[tuple] = []        # (track, ns, {series: value})
+        self._wall_id = 0
+        self._stack: list[int] = []           # open wall spans, innermost last
+        self._open: dict = {}                 # sid -> (parent, name, ns, req, args)
+        self._phases: dict = {}               # request id -> (phase, ns)
 
     # ------------------------------------------------------------- scoping --
     def push_scope(self, name: str) -> None:
@@ -122,14 +166,116 @@ class SpanTracer:
     def emit(self, event) -> None:  # race-detector hook: accept and discard
         pass
 
+    # ---------------------------------------------------------- wall clock --
+    now = staticmethod(wall_ns)
+
+    def begin(self, name: str, request: Optional[int] = None,
+              **args) -> int:
+        """Open wall span ``name`` inside the innermost open one; returns
+        its id (never 0) for :meth:`end`."""
+        self._wall_id += 1
+        sid = self._wall_id
+        stack = self._stack
+        self._open[sid] = (stack[-1] if stack else 0, name, wall_ns(),
+                           request, args or None)
+        stack.append(sid)
+        return sid
+
+    def end(self, sid: int, **args) -> None:
+        """Close span ``sid``, adding ``args`` to the ones it opened with
+        (a zero-argument callable is called when the spans are read).
+        Spans opened inside it and left open by an exception are dropped."""
+        t = wall_ns()
+        stack = self._stack
+        while stack:
+            top = stack.pop()
+            if top == sid:
+                break
+            self._open.pop(top, None)
+        parent, name, start, request, opened = self._open.pop(sid)
+        if args:
+            opened = {**opened, **args} if opened else args
+        self.wall.append(WallSpan(sid, parent, name, start, t, request,
+                                  opened))
+
+    def request_phase(self, request: int, phase: Optional[str]) -> None:
+        """Request ``request`` enters ``phase`` (``None``: it finished):
+        its previous phase becomes a span on the request's own track."""
+        t = wall_ns()
+        prev = self._phases.pop(request, None)
+        if prev is not None:
+            self._wall_id += 1
+            self.wall.append(WallSpan(self._wall_id, 0, prev[0], prev[1], t,
+                                      request))
+        if phase is not None:
+            self._phases[request] = (phase, t)
+
+    def sample(self, track: str, **values) -> None:
+        """One sample of counter ``track`` on the wall clock."""
+        self.samples.append((track, wall_ns(), values))
+
+    def wall_spans(self) -> list[WallSpan]:
+        """The closed wall spans, their deferred args resolved."""
+        for i, sp in enumerate(self.wall):
+            if sp.args and any(callable(v) for v in sp.args.values()):
+                self.wall[i] = sp._replace(args={
+                    k: v() if callable(v) else v for k, v in sp.args.items()})
+        return self.wall
+
+    def _wall_events(self) -> tuple[list, list, Optional[int]]:
+        """The wall spans and samples as (metadata, body, origin ns), in a
+        process of their own after the virtual ones; request phases go on
+        one track per request, the lanes' spans on ``engine``."""
+        spans = self.wall_spans()
+        if not spans and not self.samples:
+            return [], [], None
+        origin = min([sp.start for sp in spans]
+                     + [t for _, t, _ in self.samples])
+        pid = len(self._pids) + 1
+        meta = [{"ph": "M", "pid": pid, "tid": 0, "name": "process_name",
+                 "args": {"name": "wall"}}]
+        tids: dict = {}
+
+        def tid(track):
+            if track not in tids:
+                tids[track] = len(tids) + 1
+                meta.append({"ph": "M", "pid": pid, "tid": tids[track],
+                             "name": "thread_name", "args": {"name": track}})
+            return tids[track]
+
+        def us(t):
+            return round((t - origin) / 1e3, 3)
+
+        body = []
+        for sp in sorted(spans, key=lambda s: (s.start, s.sid)):
+            args = {"id": sp.sid, "parent": sp.parent, **(sp.args or {})}
+            if sp.request is not None:
+                args["request"] = sp.request
+            track = ("engine" if sp.parent or sp.request is None
+                     else f"request {sp.request}")
+            body.append({"ph": "X", "pid": pid, "tid": tid(track),
+                         "name": sp.name, "ts": us(sp.start),
+                         "dur": us(sp.end) - us(sp.start), "args": args})
+        for track, t, values in self.samples:
+            body.append({"ph": "C", "pid": pid, "tid": tid(track),
+                         "name": track, "ts": us(t),
+                         "args": {k: float(v) for k, v in values.items()}})
+        return meta, body, origin
+
     # -------------------------------------------------------------- export --
     def chrome_events(self) -> list[dict]:
         """Metadata first (Perfetto names tracks before events reference
-        them), then spans/counters/instants in emission order."""
-        return self._events + self._body
+        them), then spans/counters/instants in emission order, then the
+        wall spans and samples by start."""
+        return self.to_chrome()["traceEvents"]
 
     def to_chrome(self) -> dict:
-        return {"displayTimeUnit": "ms", "traceEvents": self.chrome_events()}
+        meta, body, origin = self._wall_events()
+        out = {"displayTimeUnit": "ms",
+               "traceEvents": self._events + meta + self._body + body}
+        if origin is not None:
+            out["otherData"] = {"wall_origin_ns": origin}
+        return out
 
     def write(self, path: str) -> None:
         """Deterministic dump: canonical separators + sorted keys means a

@@ -116,6 +116,8 @@ class OffsetSnapshot:
         device-recovered shard sizes against boundaries the device never
         saw.
         """
+        w = _ev.WALL
+        sp = w and w.begin("feedback.plan", sites=len(self._specs))
         host: Dict[str, np.ndarray] = {}
         for name, spec in self._specs.items():
             counts = np.asarray(self._plan_counts(spec), dtype=np.int64)
@@ -135,6 +137,9 @@ class OffsetSnapshot:
                     bounds, spec.total,
                     where=f"OffsetSnapshot.refresh[{name}]")
             host[name] = bounds
+        if sp:
+            w.end(sp)
+            sp = w.begin("feedback.upload", copies=len(host))
         for name, bounds in host.items():
             dev = self._device.get(name)
             if dev is None:
@@ -142,6 +147,8 @@ class OffsetSnapshot:
                                                   device=self.tensor_device)
             else:
                 dev.copy_(torch.from_numpy(bounds))
+        if sp:
+            w.end(sp)
         self._host = host
         if _ev.RECORDER is not None:
             for name, bounds in host.items():

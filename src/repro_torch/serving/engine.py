@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import events as _ev
 from repro_torch.device import resolve_device
+from repro_torch.kernels import COUNTED
 from repro_torch.models import forward, init_state
 from repro_torch.models.attention import KVCache
 from repro_torch.runtime import (
@@ -47,7 +48,7 @@ from .phases import DECODE, PHASE_ISA, PREFILL
 from .request import FinishReason, Request, RequestState
 from .scheduler import IterationScheduler, IterationStats
 from .slots import SlotCacheManager
-from .step_graph import StepGraph
+from .step_graph import INPUTS, LAUNCH, StepGraph, timed_launch
 
 __all__ = ["ContinuousBatchingEngine", "GenerationResult", "RoutedServer",
            "ServeEngine"]
@@ -209,6 +210,17 @@ class ContinuousBatchingEngine:
     ``cost_model`` (see :class:`~repro_torch.serving.phases.
     PhaseCostModel`) replaces wall timing with deterministic virtual
     seconds; the model on ``device`` still produces the real tokens.
+
+    **Wall spans.**  With a tracer in
+    :data:`repro_torch.core.events.WALL`, each iteration records where the
+    host spends its time, on the wall clock and whatever the clock of the
+    engine: ``iteration`` > ``admit``, ``prefill`` (> ``prefill.trunk``
+    with the model's layer spans, ``pick``, ``prefill.sync``,
+    ``feedback``) and ``decode`` (> ``decode.inputs``, ``decode.launch``,
+    ``pick``, ``feedback``, ``finish``); the feedback's parts are
+    ``feedback.fetch``, ``.replay``, ``.plan`` and ``.upload``.  Each
+    request's ``queued``, ``prefilling`` and ``decoding`` phases are spans
+    of its own, and ``queue`` and ``slots`` are sampled once an iteration.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
@@ -342,9 +354,15 @@ class ContinuousBatchingEngine:
         man = self.manager
         if not self.captured:
             dev = self.device
-            return self._decode_body(
-                torch.as_tensor(man.last_token[:, None], device=dev),
-                torch.as_tensor(man.pos, device=dev))
+            w = _ev.WALL
+            sp = w and w.begin(INPUTS)
+            tok = torch.as_tensor(man.last_token[:, None], device=dev)
+            pos = torch.as_tensor(man.pos, device=dev)
+            if sp:
+                w.end(sp)
+                return timed_launch(w, LAUNCH, dev,
+                                    lambda: self._decode_body(tok, pos))
+            return self._decode_body(tok, pos)
         if self._graph is None:
             self._graph = StepGraph(self._decode_body, [
                 torch.zeros((self.max_slots, 1), dtype=torch.int32,
@@ -367,14 +385,22 @@ class ContinuousBatchingEngine:
 
     def _sample(self, logits: torch.Tensor, phase: str) -> np.ndarray:
         """Head (where it runs outside the step) and pick, on the host."""
-        return (self._pick(self._head(logits, phase))
-                .reshape(-1).cpu().numpy())
+        w = _ev.WALL
+        sp = w and w.begin("pick")
+        out = self._pick(self._head(logits, phase)).reshape(-1).cpu().numpy()
+        if sp:
+            w.end(sp)
+        return out
 
     def _feedback(self, recs) -> None:
         """Between-step feedback: replay the step's cost tape into the ratio
         tables and rewrite the offset snapshot."""
         if recs is not None:
+            w = _ev.WALL
+            sp = w and w.begin("feedback", records=len(recs))
             self._offsets = self.balanced_trunk.compiled_feedback(recs)
+            if sp:
+                w.end(sp)
 
     # ------------------------------------------------------------- intake --
     def submit(self, request: Request) -> int:
@@ -386,6 +412,8 @@ class ContinuousBatchingEngine:
         request.request_id = self._next_id
         self._next_id += 1
         self.scheduler.submit(request)
+        if _ev.WALL is not None:
+            _ev.WALL.request_phase(request.request_id, "queued")
         return request.request_id
 
     def set_slot_budget(self, budget: int) -> int:
@@ -470,18 +498,27 @@ class ContinuousBatchingEngine:
         request.finish_reason = FinishReason.ABORTED
         request.finish_time = self.now
         self.finished.append(request)
+        if _ev.WALL is not None:
+            _ev.WALL.request_phase(request.request_id, None)
         return True
 
     # -------------------------------------------------------------- step ---
-    def _admit(self, req: Request) -> bool:
-        """Reserve a slot for a newly admitted request (True), or nothing
-        for one already prefilling (False)."""
+    def _admit(self, req: Request):
+        """Reserve a slot for a newly admitted request and return its fresh
+        prefill state, or None for a request already prefilling."""
         if req.slot is not None:
-            return False
+            return None
+        w = _ev.WALL
+        sp = w and w.begin("admit", request=req.request_id)
         req.slot = self.manager.allocate()
         req.state = RequestState.PREFILL
         req.admit_time = self.now
-        return True
+        if sp:
+            w.request_phase(req.request_id, "prefilling")
+        state = self._fresh_state()
+        if sp:
+            w.end(sp)
+        return state
 
     def _fresh_state(self):
         """A zeroed batch-1 prefill state: one per admission, since the
@@ -495,6 +532,10 @@ class ContinuousBatchingEngine:
         st = IterationStats()
         man, sched = self.manager, self.scheduler
         dev = self.device
+        w = _ev.WALL
+        sp_it = w and w.begin("iteration")
+        if sp_it:
+            launched = sum(k.launches for k in COUNTED)
 
         # Idle fast-forward: nothing to run until the next arrival.
         if (not self._running and not sched.lanes
@@ -507,16 +548,23 @@ class ContinuousBatchingEngine:
         if chunks and self.prefill_lanes == 1:
             chunk = chunks[0]
             req = chunk.request
-            if self._admit(req):
-                self._partial = self._fresh_state()
+            fresh = self._admit(req)
+            if fresh is not None:
+                self._partial = fresh
+            sp_pf = w and w.begin("prefill", request=req.request_id,
+                                  start=chunk.start, length=chunk.length,
+                                  lanes=1)
             tokens = torch.as_tensor(
                 req.prompt[chunk.start:chunk.start + chunk.length][None, :],
                 device=dev)
             t0 = time.perf_counter()
+            sp = sp_pf and w.begin("prefill.trunk")
             logits, small, recs = self._run(
                 tokens, self._partial,
                 torch.tensor(chunk.start, dtype=torch.int32, device=dev),
                 PREFILL)
+            if sp:
+                w.end(sp)
             tok = None
             if chunk.is_last:
                 # sampling inside the timed window, matching the decode
@@ -524,7 +572,10 @@ class ContinuousBatchingEngine:
                 tok = int(self._sample(logits, PREFILL)[0])
             if self.cost_model is None:
                 if dev.type == "cuda":
+                    sp = sp_pf and w.begin("prefill.sync")
                     torch.cuda.synchronize(dev)
+                    if sp:
+                        w.end(sp)
                 dt = time.perf_counter() - t0
             else:
                 dt = self.cost_model.prefill_seconds(
@@ -543,10 +594,13 @@ class ContinuousBatchingEngine:
                 self._start_decoding(req, small, tok, st)
             else:
                 self._partial = small
+            if sp_pf:
+                w.end(sp_pf)
         elif chunks:
             self._step_prefill_lanes(chunks, st)
 
         if self._running:
+            sp_dec = w and w.begin("decode", rows=len(self._running))
             t0 = time.perf_counter()
             logits, recs = self._decode()
             next_tok = self._sample(logits, DECODE)
@@ -563,12 +617,16 @@ class ContinuousBatchingEngine:
             self.now += dt
             st.decode_tokens = len(self._running)
             st.decode_seconds = dt
+            sp = sp_dec and w.begin("finish")
             for req in list(self._running):
                 t = int(next_tok[req.slot])
                 req.generated.append(t)
                 man.last_token[req.slot] = t
                 man.pos[req.slot] += 1
                 self._maybe_finish(req, t, st)
+            if sp_dec:
+                w.end(sp, finished=len(st.finished))
+                w.end(sp_dec)
 
         st.n_running = len(self._running)
         st.n_waiting = self.scheduler.n_waiting()
@@ -576,6 +634,13 @@ class ContinuousBatchingEngine:
         if self.cost_model is not None:
             _ev.emit_counter("queue", self.now,
                              lambda: {"depth": float(self.queue_depth)})
+        if sp_it:
+            w.sample("queue", waiting=st.n_waiting,
+                     prefilling=self.n_prefilling, running=st.n_running)
+            w.sample("slots", live=man.n_active, free=man.n_free)
+            w.end(sp_it, prefill_tokens=st.prefill_tokens,
+                  decode_rows=st.decode_tokens,
+                  launches=sum(k.launches for k in COUNTED) - launched)
         return st
 
     def _step_prefill_lanes(self, chunks, st: IterationStats) -> None:
@@ -589,9 +654,14 @@ class ContinuousBatchingEngine:
         batched GEMM or a reduction sums in an order set by its shape)."""
         man, sched, dev = self.manager, self.scheduler, self.device
         for c in chunks:
-            if self._admit(c.request):
-                self._partials[c.request.request_id] = self._fresh_state()
+            fresh = self._admit(c.request)
+            if fresh is not None:
+                self._partials[c.request.request_id] = fresh
         length = chunks[0].length
+        w = _ev.WALL
+        sp_pf = w and w.begin("prefill", start=min(c.start for c in chunks),
+                              length=length, lanes=len(chunks),
+                              requests=[c.request.request_id for c in chunks])
         tokens = torch.as_tensor(np.stack(
             [np.asarray(c.request.prompt[c.start:c.start + length])
              for c in chunks]), device=dev)
@@ -600,15 +670,21 @@ class ContinuousBatchingEngine:
         stacked = _stack_lane_states(
             [self._partials[c.request.request_id] for c in chunks])
         t0 = time.perf_counter()
+        sp = sp_pf and w.begin("prefill.trunk")
         logits, out_state, recs = self._run(tokens, stacked, offsets,
                                             PREFILL, lanes=True)
+        if sp:
+            w.end(sp)
         finishing = [i for i, c in enumerate(chunks) if c.is_last]
         picked = None
         if finishing:  # head + sampling inside the timed window (TTFT)
             picked = self._sample(logits, PREFILL)
         if self.cost_model is None:
             if dev.type == "cuda":
+                sp = sp_pf and w.begin("prefill.sync")
                 torch.cuda.synchronize(dev)
+                if sp:
+                    w.end(sp)
             dt = time.perf_counter() - t0
         else:
             # one parallel region over all lanes' tokens: the batched call
@@ -635,6 +711,8 @@ class ContinuousBatchingEngine:
                 self._start_decoding(req, row, int(picked[i]), st)
             else:
                 self._partials[req.request_id] = row
+        if sp_pf:
+            w.end(sp_pf)
 
     def _start_decoding(self, req: Request, state, tok: int,
                         st: IterationStats) -> None:
@@ -646,6 +724,8 @@ class ContinuousBatchingEngine:
         req.state = RequestState.RUNNING
         self._running.append(req)
         st.admitted.append(req.request_id)
+        if _ev.WALL is not None:
+            _ev.WALL.request_phase(req.request_id, "decoding")
         self._maybe_finish(req, tok, st)
 
     def _maybe_finish(self, req: Request, tok: int, st: IterationStats) -> None:
@@ -663,6 +743,8 @@ class ContinuousBatchingEngine:
         self._running.remove(req)
         self.finished.append(req)
         st.finished.append(req.request_id)
+        if _ev.WALL is not None:
+            _ev.WALL.request_phase(req.request_id, None)
 
     def run_until_idle(self, max_steps: Optional[int] = None) -> List[IterationStats]:
         """Step until every submitted request has finished."""

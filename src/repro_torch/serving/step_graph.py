@@ -21,6 +21,11 @@ counterpart of the reference's ``jax.jit`` of the engine's ``_decode``.
   replay credits every wrapper with the launches its capture recorded,
   while the capture itself, which launches nothing, counts none.
 
+* **Wall spans.**  With a tracer in :data:`repro_torch.core.events.WALL`,
+  a call records ``decode.inputs`` (the input copies) and
+  ``decode.launch`` (the replay, with its device time by CUDA events,
+  resolved when the spans are read), or ``decode.capture`` on the first.
+
 A capture or a replay that fails raises; nothing falls back to the eager
 step.  A step that syncs with the host (``.item()``, ``.cpu()``, a copy
 from pageable memory) cannot be captured: the capture raises.
@@ -33,9 +38,38 @@ from typing import Callable, Sequence
 
 import torch
 
+from repro_torch.core import events as _ev
 from repro_torch.kernels import COUNTED
 
-__all__ = ["StepGraph"]
+__all__ = ["CAPTURE", "INPUTS", "LAUNCH", "StepGraph", "timed_launch"]
+
+# the decode step's wall spans (the engine's uncaptured step records the
+# first two too)
+INPUTS, LAUNCH, CAPTURE = "decode.inputs", "decode.launch", "decode.capture"
+
+
+def _elapsed_ms(e0, e1) -> float:
+    e1.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def timed_launch(tracer, name: str, device, run: Callable):
+    """``run()`` inside wall span ``name`` of ``tracer``; on a CUDA device
+    the span's ``device_ms`` is the device time between two events
+    recorded around it, read when the tracer's spans are read."""
+    if device.type != "cuda":
+        sp = tracer.begin(name)
+        out = run()
+        tracer.end(sp)
+        return out
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    sp = tracer.begin(name)
+    e0.record()
+    out = run()
+    e1.record()
+    tracer.end(sp, device_ms=lambda: _elapsed_ms(e0, e1))
+    return out
 
 
 class StepGraph:
@@ -64,11 +98,23 @@ class StepGraph:
         if len(values) != len(self.inputs):
             raise ValueError(f"expected {len(self.inputs)} inputs, got "
                              f"{len(values)}")
+        w = _ev.WALL
+        sp = w and w.begin(INPUTS)
         for static, value in zip(self.inputs, values):
             static.copy_(torch.as_tensor(value))
+        if sp:
+            w.end(sp)
         if self.graph is None:
-            return self._warm_up_and_capture()
-        self.graph.replay()
+            sp = w and w.begin(CAPTURE)
+            out = self._warm_up_and_capture()
+            if sp:
+                w.end(sp)
+            return out
+        if w is None:
+            self.graph.replay()
+        else:
+            timed_launch(w, LAUNCH, self.inputs[0].device,
+                         self.graph.replay)
         for wrapper, n in zip(COUNTED, self.launches):
             wrapper.launches += n
         self.replays += 1

@@ -1178,6 +1178,47 @@ def test_gpu_threaded_region_equals_virtual(cuda, kernel):
 
 
 @pytest.mark.gpu
+def test_gpu_decode_ops_start_inside_their_iteration_span(cuda):
+    """The wall spans share the profiler's clock on the card: every device
+    operation of three captured decode steps starts inside its
+    ``iteration`` span (to 0.1 ms), and each replay's ``decode.launch``
+    carries its device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import events
+    from repro_torch.obs import SpanTracer
+
+    engine = _graph_engine(cuda, "q4-db")
+    engine.step()
+    _until_all_decoding(engine)
+    engine.step()                      # the capture
+    torch.cuda.synchronize()
+    tracer = SpanTracer()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prev = events.install_wall(tracer)
+        try:
+            for _ in range(3):
+                engine.step()
+        finally:
+            events.install_wall(prev)
+        torch.cuda.synchronize()
+    spans = tracer.wall_spans()
+    its = [(sp.start, sp.end) for sp in spans if sp.name == "iteration"]
+    ops = [(e.name(), e.start_ns()) for e in
+           prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not e.is_user_annotation()]
+    assert len(its) == 3 and ops
+    for name, s in ops:
+        assert any(a - 100_000 <= s <= b + 100_000 for a, b in its), name
+    launch = [sp for sp in spans if sp.name == "decode.launch"]
+    assert len(launch) == 3
+    assert all(sp.args["device_ms"] > 0 for sp in launch)
+
+
+@pytest.mark.gpu
 def test_gpu_captured_step_makes_no_host_sync(cuda):
     """JA001 on the card: reduced llama2-7b's compiled decode step, run
     uncaptured and replayed from its graph under sync debug mode

@@ -157,6 +157,18 @@ def test_disabled_hooks_never_evaluate_payloads():
     port_events.emit_counter("c", 0.0, lambda: calls.append(1))
     port_events.emit_instant("i", "n", 0.0, args=lambda: calls.append(1))
     assert calls == []
+    # a wall-span tracer has a slot of its own: it turns none of them on
+    wall = port_obs.SpanTracer()
+    prev = port_events.install_wall(wall)
+    try:
+        port_events.emit_span("t", "n", 0.0, 1.0,
+                              args=lambda: calls.append(1))
+        port_events.emit_counter("c", 0.0, lambda: calls.append(1))
+        port_events.emit_instant("i", "n", 0.0,
+                                 args=lambda: calls.append(1))
+    finally:
+        port_events.install_wall(prev)
+    assert calls == [] and wall.chrome_events() == []
 
 
 # ---------------------------------------------------------------- recorder --
