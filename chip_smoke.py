@@ -26,7 +26,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    N = 256 wk/wv, the K = 13696, 14336 and 24576 down projections) and
    at the recurrent archs' (RECURRENT_SHAPES: xlstm-1.3b's K = 2048 head,
    jamba-1.5-large's K = 8192 attention, d_ff 24576 FFN and 65536-row
-   head), each kernel's time at M = 4 beside its bound.
+   head), each kernel's time at M = 4 beside its bound.  Last, the decode
+   attention kernel against its plain version at the benchmark cells'
+   shapes (ATTN_SHAPES: granite-8b's 32 x 8 x 2568 x 128 cache, G 4, and
+   granite-moe's 16 x 8 x 1288 x 64, G 2, bf16, with live lengths like
+   the cells'), its time per layer beside its bound (the live K/V bytes
+   over HBM), its plain version's, the attention path's plain code's
+   (``_sdpa_grouped``, f32 copies of the whole cache) and
+   ``F.scaled_dot_product_attention``'s (``library_ms``, a yardstick the
+   port never calls).
 3. The main paths end to end at full width: the port's serve path on
    llama2-7b (all 32 layers, bf16, compiled trunk and head, random weights
    from seed 0), 1 replica, 4 slots, 8 requests of 64 prompt tokens and 32
@@ -546,6 +554,81 @@ RECURRENT_SHAPES = (("xlstm head", 50304, 2048),
                     ("jamba up/gate", 24576, 8192),
                     ("jamba down", 8192, 24576),
                     ("jamba head", 65536, 8192))
+
+
+# (label, rows, kv heads, G, S_max, hd, live rows) of the decode attention
+# of the benchmark's cells: long-decode's granite-8b (every slot live,
+# contexts of a 64-512 prompt and up to 2,048 tokens out), chat-short's
+# granite-moe (16 slots, ~4 live)
+ATTN_SHAPES = (("granite-8b long-decode", 32, 8, 4, 2568, 128, 32),
+               ("granite-moe chat-short", 16, 8, 2, 1288, 64, 4))
+
+
+def attention_vs_plain(da) -> dict:
+    """Phase 2 (decode attention): the kernel within its tolerance of
+    ``decode_attention_plain`` at ATTN_SHAPES (bf16: one rounding step),
+    then per layer the kernel's time (CUDA events, caches rotated past
+    the L2), its bound (live K/V bytes / 3.35 TB/s), the plain version's
+    time, the attention path's plain code's (``_sdpa_grouped``) and
+    ``F.scaled_dot_product_attention``'s with a boolean mask and GQA
+    (``library_ms``: a yardstick only)."""
+    from repro_torch.models.attention import _sdpa_grouped
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for label, b, hkv, g, s_max, hd, live in ATTN_SHAPES:
+        prompt = torch.randint(64, 513, (b,), generator=gen, device="cuda")
+        out = torch.randint(0, 2049, (b,), generator=gen, device="cuda")
+        lens = torch.clamp(prompt + out, max=s_max)
+        lens[live:] = 1                  # a free slot attends its position 0
+        q_pos = (lens - 1)[:, None].to(torch.int64)
+        kv_len = lens.to(torch.int32)
+        layer = 2 * b * hkv * s_max * hd * 2
+        sets = []
+        for _ in range(max(2, math.ceil(2 * L2_BYTES / layer))):
+            q = torch.randn((b, hkv, g, 1, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            k = torch.randn((b, hkv, s_max, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            v = torch.randn((b, hkv, s_max, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            sets.append((q, k, v, q_pos, kv_len))
+        got = da.decode_attention(*sets[0])
+        want = da.decode_attention_plain(*sets[0])
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), rtol=2 ** -7,
+                              atol=2 ** -7):
+            raise AssertionError(f"decode_attention vs plain at {label}: "
+                                 f"max abs err {err}")
+        kv_pos = torch.arange(s_max, device="cuda")
+        t_kernel = device_ms(da.decode_attention, sets, 200)
+        t_plain = device_ms(da.decode_attention_plain, sets, 5)
+        t_path = device_ms(lambda q, k, v, p, n: _sdpa_grouped(
+            q, k, v, p, kv_pos, n), sets, 10)
+        mask = (kv_pos[None, :] < lens[:, None])[:, None, None, :]
+        sdpa = [(q.reshape(b, hkv * g, 1, hd), k, v) for q, k, v, *_ in sets]
+        t_lib = device_ms(lambda q, k, v: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              q, k, v, attn_mask=mask, enable_gqa=True),
+                          sdpa, 50)
+        live_bytes = 2 * hkv * hd * 2 * int(lens.sum())
+        bound = live_bytes / HBM_BYTES_PER_S * 1e3
+        row = {"shape": label, "rows": b, "kv_heads": hkv, "group": g,
+               "s_max": s_max, "hd": hd, "live_rows": live,
+               "live_positions": int(lens.sum()), "max_abs_err": err,
+               "kernel_ms": t_kernel, "bound_ms": bound, "bound_by": "bytes",
+               "plain_ms": t_plain, "path_ms": t_path, "library_ms": t_lib}
+        rows.append(row)
+        say(f"[smoke] decode attention {label}: B={b} Hkv={hkv} G={g} "
+            f"S_max={s_max} hd={hd} live positions {row['live_positions']} "
+            f"err={err:.3g}  kernel {t_kernel * 1e3:8.2f} us/layer  bound "
+            f"{bound * 1e3:7.2f} us (bytes, {bound / t_kernel:.0%})  plain "
+            f"{t_plain * 1e3:9.1f} us  attention path {t_path * 1e3:9.1f} us"
+            f"  library {t_lib * 1e3:8.2f} us")
+        del sets, sdpa
+    torch.cuda.empty_cache()
+    return {"rows": rows}
 
 
 def zoo_kernels_vs_plain(q4, i8, quantize, q4_blocks,
@@ -3434,6 +3517,7 @@ def main(argv=None) -> int:
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import int8_gemm as i8
     from repro_torch.kernels import q4_matmul as q4
     from repro_torch.kernels.compiled import q4_blocks
@@ -3446,7 +3530,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     counts = Counts(q4, i8)
-    head = header([q4, i8])
+    head = header([q4, i8, da])
     if args.phases == "train":
         trained = train_phase(counts)
         say(f"[smoke] train only: {time.perf_counter() - t_all:.1f} s on "
@@ -3526,6 +3610,7 @@ def main(argv=None) -> int:
     p2zoo = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks)
     p2rec = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks,
                                  RECURRENT_SHAPES, "recurrent shape")
+    p2attn = attention_vs_plain(da)
     if args.phases == "kernels":
         say(f"[smoke] kernels only: {time.perf_counter() - t_all:.1f} s on "
             f"{head['card']}")
@@ -3535,7 +3620,8 @@ def main(argv=None) -> int:
                 {"card": head["card"], "build_s": head["build_s"],
                  "kernels": phase2["rows"],
                  "int8": {"kernels": p2i8["rows"]},
-                 "zoo_kernels": p2zoo, "recurrent_kernels": p2rec},
+                 "zoo_kernels": p2zoo, "recurrent_kernels": p2rec,
+                 "decode_attention": p2attn},
                 indent=1))
         say(device_line())
         return 0
@@ -3659,6 +3745,7 @@ def main(argv=None) -> int:
                   "topology_eager_vs_compiled": topo_eager["runs"],
                   "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
                   "recurrent": rec, "recurrent_kernels": p2rec,
+                  "decode_attention": p2attn,
                   "train": trained, "shard": sharded, "dryrun": dry,
                   "tune": tune, "examples": examples}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -9,8 +9,13 @@ dispatcher (eager shards and the compiled feedback replay),
 ``compiled.py`` the offsets-in / cost-tape-out lowering of every trunk
 projection.  (The front end is not re-exported here:
 ``repro_torch.kernels.q4_matmul`` and ``repro_torch.kernels.int8_gemm``
-name the kernel modules.)  :data:`COUNTED` lists every wrapper that
-counts its launches.
+name the kernel modules.)  :data:`COUNTED` lists every projection
+kernel's wrapper that counts its launches.
+
+``decode_attention.py`` holds the decode attention kernel's wrapper (one
+query per row against the KV cache, ``csrc/decode_attention.cu``), which
+``models/attention.py`` calls on the card; it counts its launches apart
+from :data:`COUNTED`.
 """
 
 from .dispatch import (
@@ -25,7 +30,7 @@ from . import ref
 from . import int8_gemm as _i8
 from . import q4_matmul as _q4
 
-# every kernel wrapper that counts its launches in ``.launches``
+# every projection kernel's wrapper that counts its launches in ``.launches``
 COUNTED = (_q4.q4_matmul, _q4.q4_matmul_db, _i8.int8_gemm)
 
 __all__ = [

@@ -20,6 +20,13 @@ and heads where only those are split, a cache whose sequence is split
 over ``"model"`` is written slice by slice (:func:`_write_cache_sharded`)
 and its softmax reduced by max and sum; off a mesh every one of these is
 the plain code, bit for bit.
+
+On the card, one query per row against a cache (a decode step, or a
+one-token chunk) goes to
+:func:`repro_torch.kernels.decode_attention.decode_attention`, a CUDA
+kernel that reads the cache in its own dtype and only up to each row's
+live length; the CPU, the mesh and every chunk of more than one query
+keep the plain code.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.sharding.specs import (is_dtensor, is_sharded, reshape,
                                         shard_offsets)
 from .layers import _dense, apply_rope
@@ -212,6 +220,11 @@ def _write_cache_sharded(buf, new, idx) -> None:
     local.scatter_(2, rows(pos), val)
 
 
+def _on_card(*ts) -> bool:
+    """True where every tensor is a plain (not DTensor) CUDA tensor."""
+    return all(t.device.type == "cuda" and not is_dtensor(t) for t in ts)
+
+
 def _attend(cfg: ModelConfig, qg, k_all, v_all, positions, kv_pos,
             kv_len) -> torch.Tensor:
     """Attention over every query, one query chunk at a time where the
@@ -300,7 +313,11 @@ def attn_fwd(
         if all(t is not None for t in kv):
             k_all, v_all = kv
 
-    if rowwise and b > 1:
+    if cache is not None and s == 1 and _on_card(qg, k_all, v_all):
+        # one query per row: the decode kernel reads the live rows of the
+        # cache in place (every row on its own, so rowwise needs nothing)
+        out = decode_attention(qg, k_all, v_all, positions, kv_len)
+    elif rowwise and b > 1:
         out = torch.cat([
             _attend(cfg, qg[i:i + 1], k_all[i:i + 1], v_all[i:i + 1],
                     positions[i:i + 1], kv_pos,

@@ -33,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import events as _ev
 from repro_torch.device import resolve_device
 from repro_torch.kernels import COUNTED
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import forward, init_state
 from repro_torch.models.attention import KVCache
 from repro_torch.runtime import (
@@ -221,6 +222,10 @@ class ContinuousBatchingEngine:
     ``feedback.fetch``, ``.replay``, ``.plan`` and ``.upload``.  Each
     request's ``queued``, ``prefilling`` and ``decoding`` phases are spans
     of its own, and ``queue`` and ``slots`` are sampled once an iteration.
+    ``iteration`` ends with the step's ``launches`` of the projection
+    kernels (:data:`~repro_torch.kernels.COUNTED`) and ``attn_launches`` of
+    the decode attention kernel (one per attention layer of a decode step
+    on the card, 0 on the plain path).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
@@ -536,6 +541,7 @@ class ContinuousBatchingEngine:
         sp_it = w and w.begin("iteration")
         if sp_it:
             launched = sum(k.launches for k in COUNTED)
+            attn_launched = decode_attention.launches
 
         # Idle fast-forward: nothing to run until the next arrival.
         if (not self._running and not sched.lanes
@@ -640,7 +646,8 @@ class ContinuousBatchingEngine:
             w.sample("slots", live=man.n_active, free=man.n_free)
             w.end(sp_it, prefill_tokens=st.prefill_tokens,
                   decode_rows=st.decode_tokens,
-                  launches=sum(k.launches for k in COUNTED) - launched)
+                  launches=sum(k.launches for k in COUNTED) - launched,
+                  attn_launches=decode_attention.launches - attn_launched)
         return st
 
     def _step_prefill_lanes(self, chunks, st: IterationStats) -> None:

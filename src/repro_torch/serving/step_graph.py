@@ -17,9 +17,10 @@ counterpart of the reference's ``jax.jit`` of the engine's ``_decode``.
   slot caches and cache indices, the offset snapshot) it reads at replay
   time, so their owners write them in place and never rebind them.
 * **Launch counts.**  The kernel wrappers count launches in Python
-  (:data:`repro_torch.kernels.COUNTED`), and a replay runs no Python: each
-  replay credits every wrapper with the launches its capture recorded,
-  while the capture itself, which launches nothing, counts none.
+  (:data:`repro_torch.kernels.COUNTED` and ``decode_attention``), and a
+  replay runs no Python: each replay credits every wrapper with the
+  launches its capture recorded, while the capture itself, which launches
+  nothing, counts none.
 
 * **Wall spans.**  With a tracer in :data:`repro_torch.core.events.WALL`,
   a call records ``decode.inputs`` (the input copies) and
@@ -40,6 +41,7 @@ import torch
 
 from repro_torch.core import events as _ev
 from repro_torch.kernels import COUNTED
+from repro_torch.kernels.decode_attention import decode_attention
 
 __all__ = ["CAPTURE", "INPUTS", "LAUNCH", "StepGraph", "timed_launch"]
 
@@ -77,8 +79,9 @@ class StepGraph:
 
     ``inputs`` are the graph's static input tensors, all on one CUDA
     device.  ``launches`` holds, per wrapper of
-    :data:`~repro_torch.kernels.COUNTED`, the launches one replay makes;
-    ``replays`` counts the replays.
+    :data:`~repro_torch.kernels.COUNTED`, the launches one replay makes,
+    ``attn_launches`` those of ``decode_attention``; ``replays`` counts the
+    replays.
     """
 
     def __init__(self, body: Callable, inputs: Sequence[torch.Tensor]):
@@ -90,6 +93,7 @@ class StepGraph:
         self.graph = None
         self.outputs = None
         self.launches = (0,) * len(COUNTED)
+        self.attn_launches = 0
         self.replays = 0
 
     def __call__(self, *values):
@@ -117,6 +121,7 @@ class StepGraph:
                          self.graph.replay)
         for wrapper, n in zip(COUNTED, self.launches):
             wrapper.launches += n
+        decode_attention.launches += self.attn_launches
         self.replays += 1
         return self.outputs
 
@@ -130,6 +135,7 @@ class StepGraph:
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = [w.launches for w in COUNTED]
+        attn_before = decode_attention.launches
         # No garbage collection while capturing: an unreachable engine's
         # graph freed mid-capture releases its memory pool, a call the
         # capture does not allow, and the capture fails.
@@ -144,5 +150,7 @@ class StepGraph:
             recorded = tuple(w.launches - b for w, b in zip(COUNTED, before))
             for w, b in zip(COUNTED, before):
                 w.launches = b          # capturing launches nothing
+            self.attn_launches = decode_attention.launches - attn_before
+            decode_attention.launches = attn_before
         self.graph, self.outputs, self.launches = graph, outputs, recorded
         return out

@@ -1066,7 +1066,9 @@ def test_gpu_sharded_decode_equals_the_plain(mesh11):
     scale of the plain run's on the card, as on the CPU meshes
     (``tests/test_torch_sharding.py``).  Not held bitwise: on the CPU the
     (1, 1) mesh's decode steps part from the plain ones by ~1e-6 in the
-    attention's output, though each product alone is bitwise."""
+    attention's output, though each product alone is bitwise; on the card
+    the plain run's decode steps attend through the decode attention
+    kernel, the mesh's DTensors through the plain path."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import forward, init_params, init_state
     from repro_torch.sharding import (activation_sharding, batch_shardings,
@@ -1106,7 +1108,15 @@ def test_gpu_sharded_decode_equals_the_plain(mesh11):
             caches = [c.full_tensor() for c in caches]
         return logits, caches
 
-    plain, sharded = run(None), run(mesh11)
+    from repro_torch.kernels import decode_attention as DA
+
+    before = DA.decode_attention.launches
+    plain = run(None)
+    launched = DA.decode_attention.launches
+    sharded = run(mesh11)
+    # the plain run's decode steps take the kernel, the mesh's DTensors not
+    assert launched - before == 3 * cfg.n_layers
+    assert DA.decode_attention.launches == launched
     pairs = list(zip(sharded[0] + sharded[1], plain[0] + plain[1]))
     print(f"sharded decode on (1, 1) bitwise the plain: "
           f"{all(torch.equal(a, b) for a, b in pairs)}")
@@ -1240,3 +1250,179 @@ def test_gpu_captured_step_makes_no_host_sync(cuda):
                                        where="replay")
     torch.cuda.synchronize()
     assert got == []
+
+
+# -------------------------------------------------------- decode attention --
+# (rows, kv heads, query heads per kv head, S_max, hd, cache dtype): the
+# long-decode cell's granite-8b, the chat cell's granite-moe, chatglm3's
+# 16 query heads per kv head, and the reduced configs' f32 hd 16
+_ATTN_SHAPES = {
+    "granite-8b": (32, 8, 4, 2568, 128, "bfloat16"),
+    "granite-moe": (16, 8, 2, 1288, 64, "bfloat16"),
+    "chatglm3": (4, 2, 16, 700, 128, "bfloat16"),
+    "olmo-f32": (3, 4, 1, 520, 128, "float32"),
+    "reduced-f32": (3, 1, 4, 32, 16, "float32"),
+}
+
+
+def _attn_inputs(device, b, hkv, g, s_max, hd, dtype, seed=0):
+    """q, k, v and mixed row lengths: 1, S_max, an index past S_max (a
+    free slot), then spread over the buffer."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    q = torch.randn((b, hkv, g, 1, hd), generator=gen, device=device).to(tdt)
+    k = torch.randn((b, hkv, s_max, hd), generator=gen, device=device).to(tdt)
+    v = torch.randn((b, hkv, s_max, hd), generator=gen, device=device).to(tdt)
+    lens = torch.randint(1, s_max + 1, (b,), generator=gen, device=device)
+    lens[0], lens[1 % b], lens[2 % b] = 1, s_max, s_max + 7
+    q_pos = (lens - 1)[:, None].to(torch.int64)
+    return q, k, v, q_pos, lens.to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(_ATTN_SHAPES))
+def test_gpu_decode_attention_matches_plain(cuda, shape):
+    """The decode attention kernel against its plain version, one launch
+    counted.  Both sum in float32 in other orders within a split: within
+    2e-6 in f32; in bf16 an output may move by one rounding step."""
+    from repro_torch.kernels import decode_attention as DA
+
+    b, hkv, g, s_max, hd, dtype = _ATTN_SHAPES[shape]
+    args = _attn_inputs(cuda, b, hkv, g, s_max, hd, dtype)
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 1
+    want = DA.decode_attention_plain(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 2 ** -7 if dtype == "bfloat16" else 2e-6
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    again = DA.decode_attention(*args)
+    assert torch.equal(got, again)         # no atomics: the same bits
+
+
+def _attn_layers(cfg) -> int:
+    return sum(m == "attn" for m, _ in cfg.period()) * cfg.n_periods
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["q4-db", "dense"])
+def test_gpu_captured_step_counts_attention_launches(cuda, which):
+    """A captured decode step credits one decode attention launch per
+    attention layer on every replay, in the ``iteration`` span's
+    ``attn_launches``; ``launches`` still counts the projection kernels
+    alone."""
+    from repro_torch.core import events
+    from repro_torch.kernels import COUNTED
+    from repro_torch.obs import SpanTracer
+
+    engine = _graph_engine(cuda, which)
+    _until_all_decoding(engine)
+    engine.step()                      # the capture
+    assert engine._graph.attn_launches == _attn_layers(engine.cfg)
+    tracer = SpanTracer()
+    prev = events.install_wall(tracer)
+    try:
+        for _ in range(3):
+            engine.step()
+    finally:
+        events.install_wall(prev)
+    its = [sp for sp in tracer.wall_spans() if sp.name == "iteration"]
+    assert len(its) == 3
+    for it in its:
+        assert it.args["decode_rows"] > 0
+        assert it.args["attn_launches"] == _attn_layers(engine.cfg)
+        assert it.args["launches"] == sum(engine._graph.launches)
+    assert (sum(engine._graph.launches) > 0) == (which != "dense")
+    assert len(engine._graph.launches) == len(COUNTED)
+
+
+@pytest.mark.gpu
+def test_gpu_decode_step_makes_no_f32_copy_of_the_cache(cuda):
+    """The captured decode step of a bf16 model (reduced granite-8b in
+    bf16, a 400-row cache) runs no operation whose output is float32 and
+    as large as a cache layer: the cache is read in place.  Seen by a
+    dispatch mode around the step body the graph captures."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatchingEngine, poisson_requests
+
+    cfg = dataclasses.replace(reduced_config("granite-8b"), dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    engine = ContinuousBatchingEngine(cfg, params, max_slots=3, max_seq=400,
+                                      prefill_chunk=8, device=cuda)
+    for r in poisson_requests(3, rate=0, vocab_size=cfg.vocab_size,
+                              prompt_len=6, max_new_tokens=10, seed=0):
+        engine.submit(r)
+    _until_all_decoding(engine)
+    layer = engine.manager.state[0].k[0]
+    assert layer.dtype == torch.bfloat16
+    big = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else [out]):
+                if isinstance(t, torch.Tensor) and \
+                        t.dtype == torch.float32 and \
+                        t.numel() >= layer.numel():
+                    big.append((str(func), tuple(t.shape)))
+            return out
+
+    man = engine.manager
+    tok = torch.as_tensor(man.last_token[:, None], device=cuda)
+    pos = torch.as_tensor(man.pos, device=cuda)
+    with Watch():
+        engine._decode_body(tok, pos)
+    torch.cuda.synchronize()
+    assert big == []
+
+
+@pytest.mark.gpu
+def test_gpu_greedy_decode_gives_the_plain_tokens(cuda, monkeypatch):
+    """Reduced granite-8b (f32), two rows prefilled with 8 and 20 tokens,
+    then 400 greedy decode steps through the kernel (past one 384-position
+    split) and through the plain attention path on the card: the same
+    tokens, and logits within 1e-5 of their scale."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import attention, forward, init_params, \
+        init_state
+
+    cfg = reduced_config("granite-8b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    gen = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+               for n in (8, 20)]
+
+    def greedy(steps=400):
+        logits, rows = [], []
+        for p in prompts:
+            st = init_state(cfg, 1, 448, device=cuda)
+            out = forward(cfg, params, p[None].to(cuda), state=st,
+                          logits_mode="last")
+            rows.append((out.state, int(out.logits[0, -1].argmax()), len(p)))
+        seqs = [[t] for _, t, _ in rows]
+        for i in range(steps):
+            for r, (st, _, n) in enumerate(rows):
+                t = torch.tensor([[seqs[r][-1]]], device=cuda)
+                out = forward(cfg, params, t, state=st, pos_offset=n + i,
+                              logits_mode="last")
+                rows[r] = (out.state, None, n)
+                logits.append(out.logits[0, -1].float())
+                seqs[r].append(int(logits[-1].argmax()))
+        return seqs, torch.stack(logits)
+
+    before = DA.decode_attention.launches
+    kernel = greedy()
+    assert DA.decode_attention.launches - before == \
+        400 * 2 * _attn_layers(cfg)
+    monkeypatch.setattr(attention, "_on_card", lambda *ts: False)
+    plain = greedy()
+    assert kernel[0] == plain[0]
+    scale = float(plain[1].abs().max())
+    assert float((kernel[1] - plain[1]).abs().max()) <= 1e-5 * scale

@@ -113,6 +113,7 @@ def test_engine_span_tree(params, cost, lanes):
         assert it.args["prefill_tokens"] == st.prefill_tokens
         assert it.args["decode_rows"] == st.decode_tokens
         assert it.args["launches"] == 0        # plain path on the CPU
+        assert it.args["attn_launches"] == 0
     decodes = [sp for sp in spans if sp.name == "decode"]
     assert len(decodes) == sum(1 for st in stats if st.decode_tokens)
     for d in decodes:
