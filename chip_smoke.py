@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    card: ``q4_matmul`` within the reference's tolerances of
    ``q4_matmul_plain`` and ``q4_matmul_db`` bitwise equal to ``q4_matmul``,
    at the main path's (N, K) shapes and M in {1, 4, 8}, f32 and bf16
-   (with each Q4 kernel's time at M = 8 over M = 1 and its time per decode
-   step); ``int8_gemm`` bitwise equal to ``int8_gemm_plain`` at the same
+   (bf16 y, the tensor-core body's, also within one bf16 step of the
+   plain y; with each Q4 kernel's time at M = 8 over M = 1 and its time
+   per decode step); ``int8_gemm`` bitwise equal to ``int8_gemm_plain`` at the same
    shapes for M in {1, 4, 8, 16, 17, 32, 64} (both sides of the kernel's
    M = 8 regime boundary), at the reference's ragged shape (100, 120, 200)
    and with N = 0.  Then each one's time (CUDA events over 100+ launches,
@@ -34,7 +35,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    over HBM), its plain version's, the attention path's plain code's
    (``_sdpa_grouped``, f32 copies of the whole cache) and
    ``F.scaled_dot_product_attention``'s (``library_ms``, a yardstick the
-   port never calls).
+   port never calls).  And the Q4 kernels' tensor-core body (bf16 x) at
+   granite-8b's shapes (TC_SHAPES) and M in {1, 4, 32}: within the bf16
+   tolerance of the plain version and one bf16 step of it, both entries
+   bitwise equal, its time beside the SIMT body's (f32 x, the path bf16
+   activations took before) and each one's bound, and the tensor-core
+   launches of a captured decode step of reduced granite-8b in bf16.
 3. The main paths end to end at full width: the port's serve path on
    llama2-7b (all 32 layers, bf16, compiled trunk and head, random weights
    from seed 0), 1 replica, 4 slots, 8 requests of 64 prompt tokens and 32
@@ -302,6 +308,21 @@ def bound_ms(m: int, n: int, k: int, itemsize: int = 4) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def hold_vs_plain(a: torch.Tensor, p: torch.Tensor, k: int, where: str) -> float:
+    """Hold a Q4 kernel's y against its plain version's: f32 y within the
+    f32 tolerance; bf16 y (the tensor-core body) within the bf16 tolerance
+    and within one bf16 step beside the f32 allowance for an order.
+    Returns the max abs error."""
+    err = (a.float() - p.float()).abs().max().item()
+    tols = (((F32_TOL, F32_TOL * k),) if a.dtype == torch.float32 else
+            ((BF16_TOL, BF16_TOL * k), (2 ** -7, F32_TOL * k)))
+    for rtol, atol in tols:
+        if not torch.allclose(a.float(), p.float(), rtol=rtol, atol=atol):
+            raise AssertionError(f"q4 kernel vs plain at {where}: max abs err "
+                                 f"{err} over rtol={rtol}, atol={atol}")
+    return err
+
+
 # --------------------------------------------------------------- phases --
 def header(libs) -> dict:
     """The card, the versions, and every kernel library built from this
@@ -330,9 +351,10 @@ def header(libs) -> dict:
 
 
 def kernels_vs_plain(q4, quantize, q4_blocks) -> dict:
-    """Phase 2: correctness and timing of both kernels at every shape."""
+    """Phase 2: correctness and timing of both kernels at every shape, f32
+    x (the SIMT body) and bf16 x (the tensor-core body, the main path's)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows, worst = [], 0.0
+    rows, worst = [], {torch.float32: 0.0, torch.bfloat16: 0.0}
     for label, n, k, per_step in SHAPES:
         bk = q4_blocks(k)[2]
         w = torch.randn((n, k), generator=gen, device="cuda")
@@ -349,23 +371,17 @@ def kernels_vs_plain(q4, quantize, q4_blocks) -> dict:
             b = q4.q4_matmul_db(x, qw, bk)
             p = q4.q4_matmul_plain(x, qw, bk)
             torch.cuda.synchronize()
-            tol = F32_TOL if dt == torch.float32 else BF16_TOL
-            err = (a.float() - p.float()).abs().max().item()
-            if not torch.allclose(a.float(), p.float(), rtol=tol,
-                                  atol=tol * k):
-                raise AssertionError(
-                    f"q4_matmul vs plain at {label} M={m} {dt}: max abs err "
-                    f"{err} over rtol={tol}, atol={tol * k}")
+            err = hold_vs_plain(a, p, k, f"{label} M={m} {dt}")
             if not torch.equal(a, b):
                 raise AssertionError(
                     f"q4_matmul_db != q4_matmul bitwise at {label} M={m} {dt}")
-            if dt == torch.float32:
-                worst = max(worst, err)
+            worst[dt] = max(worst[dt], err)
             sets = [(x, bank, bk) for bank in banks]
             t_direct = device_ms(q4.q4_matmul, sets, 200)
             t_db = device_ms(q4.q4_matmul_db, sets, 200)
             t_plain = device_ms(q4.q4_matmul_plain, sets, 10)
-            bnd, by = bound_ms(m, n, k, x.element_size())
+            bnd, by = (bound_ms(m, n, k) if dt == torch.float32 else
+                       tc_bound_ms(m, n, k))
             row = {"shape": label, "n": n, "k": k, "m": m, "bk": bk,
                    "dtype": str(dt).replace("torch.", ""),
                    "per_decode_step": per_step, "max_abs_err": err,
@@ -380,25 +396,156 @@ def kernels_vs_plain(q4, quantize, q4_blocks) -> dict:
         del banks, qw
     torch.cuda.empty_cache()
     q4_summary(rows)
-    return {"rows": rows, "max_abs_err": worst}
+    return {"rows": rows, "max_abs_err": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16]}
 
 
 def q4_summary(rows) -> None:
-    """Each kernel's f32 time at M = 8 over its time at M = 1 per shape, and
-    its time per decode step (the 225 launches at M = 4) beside the bound."""
-    f32 = {(r["shape"], r["m"]): r for r in rows if r["dtype"] == "float32"}
-    for name in KERNELS:
-        key = name + "_ms"
-        ratios = "  ".join(
-            f"{label} {f32[label, 8][key] / f32[label, 1][key]:.2f}"
-            for label, *_ in SHAPES)
-        step = sum(f32[label, DECODE_M][key] * per
-                   for label, _, _, per in SHAPES)
-        bound = sum(f32[label, DECODE_M]["bound_ms"] * per
-                    for label, _, _, per in SHAPES)
-        say(f"[smoke] {name}: time M=8 / M=1: {ratios}; decode step "
-            f"({PER_TRUNK_CALL} launches, M={DECODE_M}, f32) {step:.3f} ms, "
-            f"bound {bound:.3f} ms, time/bound {step / bound:.2f}")
+    """Each kernel's time at M = 8 over its time at M = 1 per shape, and its
+    time per decode step (the 225 launches at M = 4) beside the bound, for
+    f32 x (the SIMT body) and bf16 x (the tensor-core body)."""
+    for dt in ("float32", "bfloat16"):
+        at = {(r["shape"], r["m"]): r for r in rows if r["dtype"] == dt}
+        for name in KERNELS:
+            key = name + "_ms"
+            ratios = "  ".join(
+                f"{label} {at[label, 8][key] / at[label, 1][key]:.2f}"
+                for label, *_ in SHAPES)
+            step = sum(at[label, DECODE_M][key] * per
+                       for label, _, _, per in SHAPES)
+            bound = sum(at[label, DECODE_M]["bound_ms"] * per
+                        for label, _, _, per in SHAPES)
+            say(f"[smoke] {name}: time M=8 / M=1: {ratios}; decode step "
+                f"({PER_TRUNK_CALL} launches, M={DECODE_M}, {dt}) "
+                f"{step:.3f} ms, bound {bound:.3f} ms, time/bound "
+                f"{step / bound:.2f}")
+
+
+# (label, N, K, products a decode step) of granite-8b's Q4_0 products: 36
+# layers of q/o, k/v, up/gate (two each) and down, and the head
+TC_SHAPES = (("q/o", 4096, 4096, 72), ("k/v", 1024, 4096, 72),
+             ("up/gate", 14336, 4096, 72), ("down", 4096, 14336, 36),
+             ("head", 49152, 4096, 1))
+TC_M = (1, 4, 32)
+BF16_FLOP_PER_S = 989e12
+
+
+def tc_bound_ms(m: int, n: int, k: int) -> tuple:
+    """(bound in ms, "bytes" | "operations") of one Q4 product of bf16 x:
+    weights, x and y each moved once over HBM, against 2*M*N*K operations
+    at the card's bf16 tensor-core peak."""
+    t_bytes = (n * k * 0.5625 + (m * k + m * n) * 2) / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * n * k / BF16_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_vs_simt(q4, quantize, q4_blocks) -> dict:
+    """Phase 2, the tensor-core body: bf16 x at granite-8b's shapes against
+    the plain version, both entries bitwise equal and each launch counted
+    in ``tc_launches``; then its time beside the SIMT body's (the same
+    values as f32 x), the plain version's and the bounds, weights rotated
+    past the L2."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows, steps = [], {m: {"tc_ms": 0.0, "simt_ms": 0.0, "bound_ms": 0.0}
+                       for m in TC_M}
+    for label, n, k, per_step in TC_SHAPES:
+        bk = q4_blocks(k)[2]
+        qw = quantize(torch.randn((n, k), generator=gen, device="cuda"))
+        copies = max(2, math.ceil(2 * L2_BYTES / qw.nbytes))
+        banks = [type(qw)(qw.packed.clone(), qw.scales.clone())
+                 for _ in range(copies)]
+        for m in TC_M:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            tc_before = q4.q4_matmul.tc_launches + q4.q4_matmul_db.tc_launches
+            a = q4.q4_matmul(x, qw, bk)
+            b = q4.q4_matmul_db(x, qw, bk)
+            p = q4.q4_matmul_plain(x, qw, bk).float()
+            torch.cuda.synchronize()
+            tc = q4.q4_matmul.tc_launches + q4.q4_matmul_db.tc_launches - \
+                tc_before
+            if tc != 2 or not torch.equal(a, b):
+                raise AssertionError(f"tensor-core body at {label} M={m}: "
+                                     f"tc_launches {tc}, direct == db "
+                                     f"{torch.equal(a, b)}")
+            err = hold_vs_plain(a, p, k, f"tensor-core body {label} M={m}")
+            x32 = x.float()
+            t_tc = device_ms(q4.q4_matmul_db,
+                             [(x, bank, bk) for bank in banks], 200)
+            t_simt = device_ms(q4.q4_matmul_db,
+                               [(x32, bank, bk) for bank in banks], 200)
+            t_plain = device_ms(q4.q4_matmul_plain,
+                                [(x, bank, bk) for bank in banks], 5)
+            bnd, by = tc_bound_ms(m, n, k)
+            sbnd, sby = bound_ms(m, n, k)
+            row = {"shape": label, "n": n, "k": k, "m": m,
+                   "per_decode_step": per_step, "max_abs_err": err,
+                   "tc_ms": t_tc, "tc_bound_ms": bnd, "tc_bound_by": by,
+                   "simt_ms": t_simt, "simt_bound_ms": sbnd,
+                   "simt_bound_by": sby, "plain_ms": t_plain}
+            rows.append(row)
+            for key, val in (("tc_ms", t_tc), ("simt_ms", t_simt),
+                             ("bound_ms", bnd)):
+                steps[m][key] += val * per_step
+            say(f"[smoke] tensor-core body {label:8s} N={n:5d} K={k:5d} "
+                f"M={m:2d}: err {err:.3g}, tc {t_tc * 1e3:8.2f} us (bound "
+                f"{bnd * 1e3:6.2f} us, {by}; {100 * bnd / t_tc:5.1f}%), SIMT "
+                f"f32 x {t_simt * 1e3:8.2f} us (bound {sbnd * 1e3:6.2f} us, "
+                f"{sby}), plain {t_plain * 1e3:9.1f} us")
+        del banks, qw
+    torch.cuda.empty_cache()
+    launches = sum(sh[3] for sh in TC_SHAPES)
+    for m, st in steps.items():
+        share = 100 * st["bound_ms"] / st["tc_ms"]
+        say(f"[smoke] granite-8b decode step's Q4 products at M={m} "
+            f"({launches} launches): tensor-core body {st['tc_ms']:.3f} ms "
+            f"({share:.1f}% of the bound), SIMT body (f32 x) "
+            f"{st['simt_ms']:.3f} ms, bound {st['bound_ms']:.3f} ms")
+    return {"rows": rows, "decode_step": {str(m): v for m, v in steps.items()}}
+
+
+def tc_decode_step(q4) -> dict:
+    """The tensor-core launches of a captured decode step: reduced
+    granite-8b in bf16 on the compiled Q4 trunk, 3 slots, 3 replays; every
+    Q4 launch of a replay takes the tensor-core body."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.dispatch import HybridKernelDispatcher
+    from repro_torch.models import BalancedTrunk, init_params
+    from repro_torch.serving import ContinuousBatchingEngine, poisson_requests
+
+    cfg = dataclasses.replace(reduced_config("granite-8b"), dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    trunk = BalancedTrunk.from_params(
+        cfg, params, HybridKernelDispatcher.virtual("ultra-125h"),
+        quant="q4", device="cuda")
+    engine = ContinuousBatchingEngine(cfg, params, max_slots=3, max_seq=64,
+                                      prefill_chunk=8, balanced_trunk=trunk,
+                                      device="cuda")
+    for r in poisson_requests(3, rate=0, vocab_size=cfg.vocab_size,
+                              prompt_len=6, max_new_tokens=12, seed=0):
+        engine.submit(r)
+    while engine.n_running < engine.max_slots or engine.n_prefilling:
+        engine.step()
+    engine.step()   # the capture
+    db = q4.q4_matmul_db
+    before = (db.launches, db.tc_launches, engine._graph.replays)
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    out = {"replays": engine._graph.replays - before[2],
+           "launches": db.launches - before[0],
+           "tc_launches": db.tc_launches - before[1]}
+    if out["tc_launches"] != out["launches"] or out["launches"] == 0:
+        raise AssertionError(f"captured bf16 decode step off the tensor-core "
+                             f"body: {out}")
+    say(f"[smoke] captured bf16 decode step (reduced granite-8b): "
+        f"{out['replays']} replays, {out['launches']} q4_matmul_db launches, "
+        f"{out['tc_launches']} of them on the tensor-core body")
+    return out
 
 
 def i8_bound_ms(m: int, n: int, k: int) -> tuple:
@@ -653,12 +800,7 @@ def zoo_kernels_vs_plain(q4, i8, quantize, q4_blocks,
             a, b = q4.q4_matmul(x, qw, bk), q4.q4_matmul_db(x, qw, bk)
             p = q4.q4_matmul_plain(x, qw, bk)
             torch.cuda.synchronize()
-            tol = F32_TOL if dt == torch.float32 else BF16_TOL
-            err = (a.float() - p.float()).abs().max().item()
-            if not torch.allclose(a.float(), p.float(), rtol=tol,
-                                  atol=tol * k):
-                raise AssertionError(f"q4_matmul vs plain at {label} M={m} "
-                                     f"{dt}: max abs err {err}")
+            err = hold_vs_plain(a, p, k, f"{label} M={m} {dt}")
             if not torch.equal(a, b):
                 raise AssertionError(f"q4_matmul_db != q4_matmul bitwise at "
                                      f"{label} M={m} {dt}")
@@ -3432,12 +3574,14 @@ def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
     ``paths`` its launches on every other path that drives it (each run
     with the counts set to 0 just before and read just after); ``ms``,
     ``plain_ms`` and ``bound_ms`` for one decode step's worth of its
-    launches (225 at the main path's shapes, M = 4; f32 x for Q4);
+    launches (225 at the main path's shapes, M = 4; for Q4 bf16 x, the
+    main path's, so the tensor-core body against its bf16 bound);
     ``variants`` the same step's time through each launch variant the
-    kernel tuner chooses among (phase 15)."""
+    kernel tuner chooses among (phase 15; f32 x for Q4, since for bf16 x
+    both variants run the one tensor-core body)."""
     q4_variants = variant_steps(tune, "q4")
     rows = [r for r in phase2["rows"]
-            if r["m"] == DECODE_M and r["dtype"] == "float32"]
+            if r["m"] == DECODE_M and r["dtype"] == "bfloat16"]
     per = (f"decode step: {sum(r['per_decode_step'] for r in rows)} "
            f"launches at M={DECODE_M}")
     entries = []
@@ -3445,15 +3589,15 @@ def kernel_entries(phase2: dict, launches: dict, p2i8: dict,
         ms = sum(r[f"{name}_ms"] * r["per_decode_step"] for r in rows)
         plain = sum(r["plain_ms"] * r["per_decode_step"] for r in rows)
         t_bytes = sum((r["n"] * r["k"] * 0.5625 + DECODE_M * (r["k"] + r["n"])
-                       * 4) * r["per_decode_step"] for r in rows)
+                       * 2) * r["per_decode_step"] for r in rows)
         t_ops = sum(2.0 * DECODE_M * r["n"] * r["k"] * r["per_decode_step"]
                     for r in rows)
         t_bytes /= HBM_BYTES_PER_S
-        t_ops /= F32_FLOP_PER_S
+        t_ops /= BF16_FLOP_PER_S
         entries.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": int(launches[name]),
-            "max_abs_err": phase2["max_abs_err"], "ms": ms,
+            "max_abs_err": phase2["max_abs_err_bf16"], "ms": ms,
             "plain_ms": plain, "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "per": per, "paths": paths[name],
@@ -3611,6 +3755,8 @@ def main(argv=None) -> int:
     p2rec = zoo_kernels_vs_plain(q4, i8, quantize_q4_0, q4_blocks,
                                  RECURRENT_SHAPES, "recurrent shape")
     p2attn = attention_vs_plain(da)
+    p2tc = {"body": tc_vs_simt(q4, quantize_q4_0, q4_blocks),
+            "decode_step": tc_decode_step(q4)}
     if args.phases == "kernels":
         say(f"[smoke] kernels only: {time.perf_counter() - t_all:.1f} s on "
             f"{head['card']}")
@@ -3621,7 +3767,7 @@ def main(argv=None) -> int:
                  "kernels": phase2["rows"],
                  "int8": {"kernels": p2i8["rows"]},
                  "zoo_kernels": p2zoo, "recurrent_kernels": p2rec,
-                 "decode_attention": p2attn},
+                 "decode_attention": p2attn, "tensor_core": p2tc},
                 indent=1))
         say(device_line())
         return 0
@@ -3745,7 +3891,7 @@ def main(argv=None) -> int:
                   "topology_eager_vs_compiled": topo_eager["runs"],
                   "fleet": fleet, "zoo": zoo, "zoo_kernels": p2zoo,
                   "recurrent": rec, "recurrent_kernels": p2rec,
-                  "decode_attention": p2attn,
+                  "decode_attention": p2attn, "tensor_core": p2tc,
                   "train": trained, "shard": sharded, "dryrun": dry,
                   "tune": tune, "examples": examples}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -11,7 +11,8 @@ the paper splits it across the parallel region:
   Balance is decided before the parallel work starts.
 * **Inside the step** (device): every projection is ONE launch over the
   full (M, N) output — the double-buffered Q4 CUDA kernel
-  (:func:`~repro_torch.kernels.q4_matmul.q4_matmul_db`), the u8 x s8 CUDA
+  (:func:`~repro_torch.kernels.q4_matmul.q4_matmul_db`; bf16 activations go
+  in and come out as they are, on the tensor cores), the u8 x s8 CUDA
   kernel (:func:`~repro_torch.kernels.int8_gemm.int8_gemm`) between
   dynamic u8 quantization and its dequant, or, for the fp32 trunk, one
   ``torch.matmul``.  Core ``c`` owns output rows
@@ -239,39 +240,48 @@ class CompiledDispatcher:
 
     # ------------------------------------------------------------- kernels --
     def apply(self, layer, x: torch.Tensor, *, isa: str, kind: str,
-              offsets=None, plain: bool = False) -> torch.Tensor:
+              offsets=None, plain: bool = False,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """One compiled balanced projection ``y = x @ W.T``: the layer's
-        kernel runs as one launch over the whole output, in f32, cast back
-        to x's dtype; the per-core boundaries from ``offsets`` (or the
-        snapshot's current device tensors) go to the cost tape.
+        kernel runs as one launch over the whole output; the per-core
+        boundaries from ``offsets`` (or the snapshot's current device
+        tensors) go to the cost tape.  A Q4 product of bf16 x takes x as it
+        is (the tensor-core body) and writes y in ``out_dtype`` (x's dtype
+        when None; float32 keeps the f32 sums, as the LM head's logits);
+        every other product runs in f32, cast to ``out_dtype``.
         ``plain=True`` runs the kernel's plain torch version instead, on
         any device (the reference path that tests and the chip smoke
         compare against); the fp32 product has no kernel and is the same
         either way."""
         spec = self.spec_for(layer, isa, kind)
-        dtype = x.dtype
+        dtype = out_dtype or x.dtype
         lead = x.shape[:-1]
-        x32 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if spec.kernel != "q4_matmul" or x2.dtype != torch.bfloat16:
+            x2 = x2.to(torch.float32)
         if spec.kernel == "q4_matmul":
-            y = self._q4(x32, layer.qw, spec, plain)
+            y = self._q4(x2, layer.qw, spec, plain, dtype)
         elif spec.kernel == "int8_gemm":
-            y = ops.int8_linear(quantize_u8_dynamic(x32), layer.w,
+            y = ops.int8_linear(quantize_u8_dynamic(x2), layer.w,
                                 plain=plain)
         else:
-            y = ops.f32_matmul(x32, layer.w)
-        self._record(spec, int(x32.shape[0]), offsets)
+            y = ops.f32_matmul(x2, layer.w)
+        self._record(spec, int(x2.shape[0]), offsets)
         return y.to(dtype).reshape(*lead, -1)
 
     def _q4(self, x: torch.Tensor, qw: QuantizedLinear, spec: CompiledSpec,
-            plain: bool) -> torch.Tensor:
+            plain: bool, dtype: torch.dtype) -> torch.Tensor:
+        """The Q4 product of f32 or bf16 x; bf16 x gives f32 y where
+        ``dtype`` is float32, else y in x's dtype."""
         bk = q4_blocks(spec.k)[2]
+        f32_y = x.dtype == torch.bfloat16 and dtype == torch.float32
         if plain:
-            return q4_matmul_plain(x, qw, bk)
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            x = x.clone(memory_format=torch.contiguous_format)  # kernel layout
+            return q4_matmul_plain(x, qw, bk, torch.float32 if f32_y else None)
+        out = (torch.empty((x.shape[0], spec.n), dtype=torch.float32,
+                           device=x.device) if f32_y else None)
         if not self.double_buffer:
-            return ops.q4_matmul(x, qw, blocks=q4_blocks(spec.k))
-        return q4_matmul_db(x, qw, bk)
+            return ops.q4_matmul(x, qw, blocks=q4_blocks(spec.k), out=out)
+        return q4_matmul_db(x, qw, bk, out=out)
 
     # ------------------------------------------------------------ feedback --
     def feedback(self, records, update: bool = True) -> Dict[str, torch.Tensor]:

@@ -10,9 +10,14 @@ Two kernels, one per Pallas TPU kernel of ``repro/kernels/q4_matmul.py``:
   flight while the current one computes) — the kernel of every Q4
   projection of compiled balanced decode.
 
-Both entries run one kernel body with one order of sums, set by K alone,
-so they are bitwise equal at every shape and ``bk``; see
-``csrc/q4_matmul.cu`` for what bounds them and the design.
+x's dtype picks the kernel body, the same for both entries: float32 x runs
+on the f32 pipes (``q4_gemv_kernel``), bfloat16 x on the tensor cores
+(``q4_mma_kernel``, one pass over W for every 64 rows of x; y rounded once
+from the f32 sums to bf16, or written as f32 into a float32 ``out``).
+Each body sums in an order set by K alone, so the entries are bitwise
+equal at every shape and ``bk``, and row i of a launch equals a launch of
+row i alone; see ``csrc/q4_matmul.cu`` for what bounds them and the
+design.
 
 The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface at first launch (:mod:`._build`: into
@@ -21,7 +26,8 @@ loaded with :mod:`ctypes`.
 A wrapper takes :func:`q4_matmul_plain` only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.  Each wrapper counts its
 launches in a plain integer attribute, ``q4_matmul.launches`` and
-``q4_matmul_db.launches``.
+``q4_matmul_db.launches``, and those that took the tensor-core body (bf16 x)
+in ``tc_launches`` beside it.
 """
 
 from __future__ import annotations
@@ -49,11 +55,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "q4_matmul.cu"
 
 
 # ------------------------------------------------------------ plain version --
-def q4_matmul_plain(x: torch.Tensor, qw: QuantizedLinear,
-                    bk: int) -> torch.Tensor:
+def q4_matmul_plain(x: torch.Tensor, qw: QuantizedLinear, bk: int,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x (M, K) @ dequant(W (N, K)).T`` in plain torch ops, mirroring the
     TPU kernel body: per K tile of ``bk`` columns, the low-plane matmul then
-    the high-plane matmul, accumulated in float32; the result in x's dtype."""
+    the high-plane matmul, accumulated in float32; the result in
+    ``out_dtype`` (x's dtype when None)."""
     m, k = x.shape
     n = qw.packed.shape[0]
     if qw.packed.shape[1] * 2 != k:
@@ -74,7 +81,7 @@ def q4_matmul_plain(x: torch.Tensor, qw: QuantizedLinear,
         xt = x32[:, kt * bk:(kt + 1) * bk].reshape(m, groups, GROUP)
         acc += xt[:, :, :GROUP // 2].reshape(m, half) @ w_lo.T
         acc += xt[:, :, GROUP // 2:].reshape(m, half) @ w_hi.T
-    return acc.to(x.dtype)
+    return acc.to(out_dtype or x.dtype)
 
 
 # ------------------------------------------------------------------- build --
@@ -128,24 +135,31 @@ def _check(x: torch.Tensor, qw: QuantizedLinear, bk: int) -> None:
 def _launch(wrapper, entry: str, x: torch.Tensor, qw: QuantizedLinear,
             bk: int, out: Optional[torch.Tensor]) -> torch.Tensor:
     """Launch ``entry`` into ``out`` (or a new tensor) and add one to
-    ``wrapper.launches`` (an empty product launches nothing and counts
-    nothing)."""
+    ``wrapper.launches``, and to ``wrapper.tc_launches`` for bf16 x (an
+    empty product launches nothing and counts nothing).  x that is not
+    contiguous or not 16-byte aligned is copied to the kernels' layout."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
     _check(x, qw, bk)
     m, k = x.shape
     n = qw.packed.shape[0]
-    y, ldy = _build.output(out, m, n, x.dtype, x.device)
+    bf16 = x.dtype == torch.bfloat16
+    y, ldy = _build.output(out, m, n, _out_dtype(x, out), x.device)
     if m == 0 or n == 0:
         return y
     fn = getattr(_library(), entry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(int(x.dtype == torch.bfloat16), x.data_ptr(),
+        types = 0 if not bf16 else 1 if y.dtype == torch.bfloat16 else 2
+        err = fn(types, x.data_ptr(),
                  qw.packed.data_ptr(), qw.scales.data_ptr(), y.data_ptr(),
                  m, n, k, bk, ldy, stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err} "
                            f"(M={m}, N={n}, K={k}, bk={bk})")
     wrapper.launches += 1
+    if bf16:
+        wrapper.tc_launches += 1
     return y
 
 
@@ -159,9 +173,18 @@ def _route(x: torch.Tensor) -> bool:
     raise ValueError(f"no Q4 kernel for device {x.device}")
 
 
+def _out_dtype(x: torch.Tensor, out: Optional[torch.Tensor]) -> torch.dtype:
+    """y's dtype: x's, or float32 where bf16 x is written into a float32
+    ``out``."""
+    if out is not None and x.dtype == torch.bfloat16 and \
+            out.dtype == torch.float32:
+        return torch.float32
+    return x.dtype
+
+
 def _plain(x: torch.Tensor, qw: QuantizedLinear, bk: int,
            out: Optional[torch.Tensor]) -> torch.Tensor:
-    y = q4_matmul_plain(x, qw, bk)
+    y = q4_matmul_plain(x, qw, bk, _out_dtype(x, out))
     return y if out is None else out.copy_(y)
 
 
@@ -169,7 +192,8 @@ def q4_matmul(x: torch.Tensor, qw: QuantizedLinear, bk: int, *,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x (M, K) f32/bf16 @ dequant(Q4_0 (N, K)).T -> (M, N)`` in x's dtype
     (replaces ``q4_matmul_pallas``), written into ``out`` when given (a
-    row-major (M, N) tensor whose rows may lie further apart than N)."""
+    row-major (M, N) tensor whose rows may lie further apart than N; of x's
+    dtype, or float32 for bf16 x: the f32 sums unrounded)."""
     if _route(x):
         return _plain(x, qw, bk, out)
     return _launch(q4_matmul, "q4_matmul", x, qw, bk, out)
@@ -185,11 +209,11 @@ def q4_matmul_db(x: torch.Tensor, qw: QuantizedLinear, bk: int, *,
     return _launch(q4_matmul_db, "q4_matmul_db", x, qw, bk, out)
 
 
-q4_matmul.launches = 0
-q4_matmul_db.launches = 0
-
-
 def reset_launch_counts() -> None:
-    """Set both wrappers' launch counts to 0."""
-    q4_matmul.launches = 0
-    q4_matmul_db.launches = 0
+    """Set both wrappers' launch counts, and their tensor-core counts, to 0."""
+    for wrapper in (q4_matmul, q4_matmul_db):
+        wrapper.launches = 0
+        wrapper.tc_launches = 0
+
+
+reset_launch_counts()

@@ -236,13 +236,16 @@ class BalancedTrunk:
     def apply_head(self, x: torch.Tensor, *, isa: str, offsets=None,
                    plain: bool = False) -> torch.Tensor:
         """Balanced LM head with the per-phase ``kernel_key(isa, "head")``
-        table key, run like every other projection of the trunk's mode."""
+        table key, run like every other projection of the trunk's mode;
+        float32 logits whatever the hidden states' dtype (compiled, a bf16
+        x takes the Q4 kernels' tensor-core body and keeps the f32 sums)."""
         if self.head is None:
             raise ValueError("trunk was built with include_head=False")
         if self.mode == "eager":
             if plain:
                 raise ValueError("plain=True is a compiled-mode option")
-            return self.head(x, isa=isa,
-                             key=kernel_key(isa, "head")).to(x.dtype)
+            return self.head(x.to(torch.float32), isa=isa,
+                             key=kernel_key(isa, "head"))
         return self._compiled().apply(self.head, x, isa=isa, kind="head",
-                                      offsets=offsets, plain=plain)
+                                      offsets=offsets, plain=plain,
+                                      out_dtype=torch.float32)

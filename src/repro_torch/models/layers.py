@@ -179,7 +179,8 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 class BalancedQuantLinear:
     """Fp32-Int4-Fp32 linear ``y = x @ W.T`` bound to a balanced dispatcher
-    (the paper's decode hot path), holding the Q4_0 weight.  The compiled
+    (the paper's decode hot path), holding the Q4_0 weight; bf16 x runs as
+    bf16-Int4-bf16 (the kernels' tensor-core body).  The compiled
     lowering (:mod:`repro_torch.kernels.compiled`) runs it as one kernel
     launch and replays the per-core split on the dispatcher; calling it
     runs one real kernel shard per core (eager dispatch), each at the
@@ -210,7 +211,12 @@ class BalancedQuantLinear:
 
     def __call__(self, x: torch.Tensor, *, isa: str = "membw",
                  key: Optional[str] = None) -> torch.Tensor:
-        y = self.dispatcher.q4_matmul(_rows(x), self.qw, isa=isa, key=key,
+        """``x @ W.T`` as per-core shards; bf16 x stays bf16 (the Q4
+        kernels' tensor-core body) and gives bf16, any other x runs in
+        float32."""
+        rows = (x.reshape(-1, x.shape[-1]) if x.dtype == torch.bfloat16
+                else _rows(x))
+        y = self.dispatcher.q4_matmul(rows, self.qw, isa=isa, key=key,
                                       variant=self.variant)
         return y.reshape(*x.shape[:-1], -1)
 

@@ -262,7 +262,8 @@ def forward(
     are written in place and returned, the caches with advanced indices.
     ``pos_offset`` is a scalar or a (B,) per-row offset (slot-batched
     serving).  ``apply_head=False`` skips the LM-head matmul and returns
-    the final-normed hidden states (f32) in the ``logits`` slot.
+    the final-normed hidden states (in the activations' dtype) in the
+    ``logits`` slot.
 
     ``trunk`` (a :class:`~repro_torch.models.balanced.BalancedTrunk`)
     reroutes every banked projection through the compiled balanced
@@ -364,7 +365,7 @@ def forward(
         logits = logits_fwd(cfg, gather_fsdp(params["embed"]), x)
         logits = constrain(logits, ("dp", None, "tp"))
     else:
-        logits = x.to(torch.float32)
+        logits = x
     n_moe = max(1, sum(1 for _, f in cfg.layer_plan() if f == "moe"))
     return ForwardOut(logits=logits, state=new_state,
                       aux={"lb_loss": lb / n_moe, "dropped": dropped / n_moe})

@@ -381,7 +381,10 @@ class ContinuousBatchingEngine:
         an eager trunk's head — over (B, d) hidden states; the logits of
         every other engine pass through."""
         if self.balanced_head is not None:
-            return self.balanced_head(hidden, isa=PHASE_ISA[phase])
+            # the Fp32-Int4-Fp32 head: float32 logits whatever the model's
+            # dtype (bf16 x would take the kernels' bf16 body)
+            return self.balanced_head(hidden.to(torch.float32),
+                                      isa=PHASE_ISA[phase])
         trunk = self.balanced_trunk
         if (not self._compiled_trunk and trunk is not None
                 and trunk.head is not None):

@@ -19,7 +19,8 @@ counterpart of the reference's ``jax.jit`` of the engine's ``_decode``.
 * **Launch counts.**  The kernel wrappers count launches in Python
   (:data:`repro_torch.kernels.COUNTED` and ``decode_attention``), and a
   replay runs no Python: each replay credits every wrapper with the
-  launches its capture recorded, while the capture itself, which launches
+  launches its capture recorded (and a Q4 wrapper with its tensor-core
+  launches, ``tc_launches``), while the capture itself, which launches
   nothing, counts none.
 
 * **Wall spans.**  With a tracer in :data:`repro_torch.core.events.WALL`,
@@ -42,8 +43,11 @@ import torch
 from repro_torch.core import events as _ev
 from repro_torch.kernels import COUNTED
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.q4_matmul import q4_matmul, q4_matmul_db
 
 __all__ = ["CAPTURE", "INPUTS", "LAUNCH", "StepGraph", "timed_launch"]
+
+Q4 = (q4_matmul, q4_matmul_db)   # the wrappers that count tensor-core launches
 
 # the decode step's wall spans (the engine's uncaptured step records the
 # first two too)
@@ -80,6 +84,8 @@ class StepGraph:
     ``inputs`` are the graph's static input tensors, all on one CUDA
     device.  ``launches`` holds, per wrapper of
     :data:`~repro_torch.kernels.COUNTED`, the launches one replay makes,
+    ``tc_launches``, per wrapper of :data:`Q4`, those on the Q4
+    tensor-core body,
     ``attn_launches`` those of ``decode_attention``; ``replays`` counts the
     replays.
     """
@@ -93,6 +99,7 @@ class StepGraph:
         self.graph = None
         self.outputs = None
         self.launches = (0,) * len(COUNTED)
+        self.tc_launches = (0,) * len(Q4)
         self.attn_launches = 0
         self.replays = 0
 
@@ -121,6 +128,8 @@ class StepGraph:
                          self.graph.replay)
         for wrapper, n in zip(COUNTED, self.launches):
             wrapper.launches += n
+        for wrapper, n in zip(Q4, self.tc_launches):
+            wrapper.tc_launches += n
         decode_attention.launches += self.attn_launches
         self.replays += 1
         return self.outputs
@@ -135,6 +144,7 @@ class StepGraph:
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = [w.launches for w in COUNTED]
+        tc_before = [w.tc_launches for w in Q4]
         attn_before = decode_attention.launches
         # No garbage collection while capturing: an unreachable engine's
         # graph freed mid-capture releases its memory pool, a call the
@@ -148,9 +158,13 @@ class StepGraph:
             if collecting:
                 gc.enable()
             recorded = tuple(w.launches - b for w, b in zip(COUNTED, before))
+            tc = tuple(w.tc_launches - b for w, b in zip(Q4, tc_before))
             for w, b in zip(COUNTED, before):
                 w.launches = b          # capturing launches nothing
+            for w, b in zip(Q4, tc_before):
+                w.tc_launches = b
             self.attn_launches = decode_attention.launches - attn_before
             decode_attention.launches = attn_before
         self.graph, self.outputs, self.launches = graph, outputs, recorded
+        self.tc_launches = tc
         return out

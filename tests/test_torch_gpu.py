@@ -104,6 +104,161 @@ def test_gpu_q4_geometry(cuda, m, n, k, bk, dtype):
         bool((full[:, 24 + n:] == -7).all())
 
 
+# ------------------------------------------- the tensor-core body (bf16) --
+# (N, K) of granite-8b's Q4_0 products: q/o, k/v, up/gate, down, head; and
+# an N that no tile of 32, 64 or 128 rows divides, at a K whose scale rows
+# are not 16-byte aligned (428 groups)
+_TC_SHAPES = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+              (49152, 4096), (1000, 13696)]
+
+
+def _bf16_product(device, m, n, k, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+    qw = quantize_q4_0(torch.randn((n, k), generator=gen, device=device))
+    return x, qw, q4_blocks(k)[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", _TC_SHAPES)
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 512])
+def test_gpu_tc_body_matches_plain(cuda, m, n, k):
+    """bf16 x on the tensor-core body: within the repo's bf16 tolerance of
+    the plain version and at most one bf16 step from it (both round an f32
+    sum once), both entries bitwise equal, one launch each, both counted
+    as tensor-core launches."""
+    x, qw, bk = _bf16_product(cuda, m, n, k, seed=m * 31 + n + k)
+    before = [(w.launches, w.tc_launches) for w in (K.q4_matmul,
+                                                     K.q4_matmul_db)]
+    a = K.q4_matmul(x, qw, bk)
+    b = K.q4_matmul_db(x, qw, bk)
+    p = K.q4_matmul_plain(x, qw, bk)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.tc_launches) for w in (K.q4_matmul,
+                                                  K.q4_matmul_db)] == \
+        [(c + 1, t + 1) for c, t in before]
+    assert a.dtype == torch.bfloat16 and a.shape == (m, n)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.float(), p.float(), rtol=2e-2,
+                               atol=2e-2 * k)
+    # one bf16 step, beside the f32 kernels' own allowance for an order
+    torch.testing.assert_close(a.float(), p.float(), rtol=2 ** -7,
+                               atol=2e-5 * k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(1024, 4096), (14336, 4096), (4096, 14336),
+                                 (1000, 13696)])
+def test_gpu_tc_row_of_a_launch_equals_a_launch_of_the_row(cuda, n, k):
+    """Row i of an M = 32 (and M = 512) launch is bitwise an M = 1 launch of
+    row i: the sums' order is set by K alone, so prefill lanes and the
+    decode batch cannot part at near-ties."""
+    x, qw, bk = _bf16_product(cuda, 512, n, k, seed=n + k)
+    y32 = K.q4_matmul_db(x[:32].contiguous(), qw, bk)
+    y512 = K.q4_matmul_db(x, qw, bk)
+    for i in range(32):
+        one = K.q4_matmul_db(x[i:i + 1].clone(), qw, bk)
+        assert torch.equal(one[0], y32[i]), i
+        assert torch.equal(one[0], y512[i]), i
+    for i in (32, 100, 511):
+        assert torch.equal(K.q4_matmul(x[i:i + 1].clone(), qw, bk)[0],
+                           y512[i]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 32, 33])
+def test_gpu_tc_shard_into_a_wider_output_equals_one_launch(cuda, m):
+    """Eager row shards of W, each written through out= into its columns
+    of a wider output (ldy > N; shard scale rows that start anywhere),
+    equal the same columns of one launch bitwise, and nothing else of the
+    output is written."""
+    n, k = 1000, 13696
+    x, qw, bk = _bf16_product(cuda, m, n, k, seed=m + 5)
+    whole = K.q4_matmul(x, qw, bk)
+    out = torch.full((m, n + 40), -7, dtype=torch.bfloat16, device=cuda)
+    for lo, hi in ((0, 37), (37, 300), (300, 301), (301, 1000)):
+        shard = type(qw)(qw.packed[lo:hi], qw.scales[lo:hi])
+        K.q4_matmul_db(x, shard, bk, out=out[:, 24 + lo:24 + hi])
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 24:24 + n], whole)
+    assert bool((out[:, :24] == -7).all()) and \
+        bool((out[:, 24 + n:] == -7).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 32])
+def test_gpu_tc_replay_equals_an_eager_launch(cuda, m):
+    """A CUDA graph that captured the bf16 launch replays it bitwise."""
+    x, qw, bk = _bf16_product(cuda, m, 4096, 4096, seed=m)
+    want = K.q4_matmul_db(x, qw, bk)
+    out = torch.empty_like(want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.q4_matmul_db(x, qw, bk, out=out)   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        K.q4_matmul_db(x, qw, bk, out=out)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+def test_gpu_replays_count_tensor_core_launches(cuda):
+    """A bf16 model's captured decode step (reduced granite-8b, compiled
+    Q4 trunk): every Q4 launch of a replay takes the tensor-core body, and
+    each replay credits ``tc_launches`` as it credits ``launches``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import BalancedTrunk, init_params
+    from repro_torch.serving import ContinuousBatchingEngine, poisson_requests
+
+    cfg = dataclasses.replace(reduced_config("granite-8b"), dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    trunk = BalancedTrunk.from_params(
+        cfg, params, HybridKernelDispatcher.virtual("ultra-125h"),
+        quant="q4", device=cuda)
+    engine = ContinuousBatchingEngine(cfg, params, max_slots=3, max_seq=64,
+                                      prefill_chunk=8, balanced_trunk=trunk,
+                                      device=cuda)
+    for r in poisson_requests(3, rate=0, vocab_size=cfg.vocab_size,
+                              prompt_len=6, max_new_tokens=12, seed=0):
+        engine.submit(r)
+    _until_all_decoding(engine)
+    engine.step()   # the capture
+    db = K.q4_matmul_db
+    before = (db.launches, db.tc_launches, engine._graph.replays)
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    replays = engine._graph.replays - before[2]
+    per = 7 * cfg.n_layers + 1
+    assert replays == 3
+    assert (db.launches - before[0], db.tc_launches - before[1]) == \
+        (per * replays, per * replays)
+
+
+@pytest.mark.gpu
+def test_gpu_tc_launches_count_bf16_launches_only(cuda):
+    """``tc_launches`` counts a launch of bf16 x, and not one of f32 x;
+    ``reset_launch_counts`` clears it."""
+    x, qw, bk = _bf16_product(cuda, 4, 1024, 4096, seed=9)
+    K.reset_launch_counts()
+    K.q4_matmul(x, qw, bk)
+    K.q4_matmul_db(x, qw, bk)
+    K.q4_matmul(x.float(), qw, bk)
+    K.q4_matmul_db(x.float(), qw, bk)
+    K.q4_matmul_db(x.float(), qw, bk)
+    torch.cuda.synchronize()
+    assert (K.q4_matmul.launches, K.q4_matmul.tc_launches) == (2, 1)
+    assert (K.q4_matmul_db.launches, K.q4_matmul_db.tc_launches) == (3, 1)
+    K.reset_launch_counts()
+    assert K.q4_matmul.tc_launches == K.q4_matmul_db.tc_launches == 0
+
+
 def _ints(m, n, k, device, seed):
     gen = torch.Generator(device=device).manual_seed(seed)
     a = torch.randint(0, 256, (m, k), generator=gen, device=device,
@@ -1337,48 +1492,108 @@ def test_gpu_captured_step_counts_attention_launches(cuda, which):
     assert len(engine._graph.launches) == len(COUNTED)
 
 
+class _F32Watch:
+    """A dispatch mode factory around a step body: ``copies`` collects
+    (input dtype, output dtype, output shape) of every dtype conversion
+    between float32 and bfloat16, ``outputs`` every float32 output's op
+    and shape."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        watch = self
+        self.copies, self.outputs = [], []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                src = args[0] if args else None
+                for t in (out if isinstance(out, (tuple, list)) else [out]):
+                    if not isinstance(t, torch.Tensor):
+                        continue
+                    if t.dtype == torch.float32:
+                        watch.outputs.append((str(func), tuple(t.shape),
+                                              t.numel()))
+                    if isinstance(src, torch.Tensor) and \
+                            {src.dtype, t.dtype} == {torch.float32,
+                                                     torch.bfloat16}:
+                        watch.copies.append((src.dtype, t.dtype,
+                                             tuple(t.shape)))
+                return out
+
+        self.mode = Mode
+
+
 @pytest.mark.gpu
-def test_gpu_decode_step_makes_no_f32_copy_of_the_cache(cuda):
+def test_gpu_decode_step_makes_no_f32_copy_of_the_cache(cuda, monkeypatch):
     """The captured decode step of a bf16 model (reduced granite-8b in
     bf16, a 400-row cache) runs no operation whose output is float32 and
-    as large as a cache layer: the cache is read in place.  Seen by a
-    dispatch mode around the step body the graph captures."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
+    as large as a cache layer: the cache is read in place.  And on the
+    compiled Q4 trunk the step makes no float32 copy of the activations
+    around a Q4 product: every product takes bf16 x into the tensor-core
+    body and gives bf16 y (the head: float32 logits, written as such).
+    Seen by a dispatch mode around the step body the graph captures."""
     from repro_torch.configs import reduced_config
-    from repro_torch.models import init_params
+    from repro_torch.kernels.compiled import CompiledDispatcher
+    from repro_torch.models import BalancedTrunk, init_params
     from repro_torch.serving import ContinuousBatchingEngine, poisson_requests
 
     cfg = dataclasses.replace(reduced_config("granite-8b"), dtype="bfloat16")
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
                          device=cuda)
-    engine = ContinuousBatchingEngine(cfg, params, max_slots=3, max_seq=400,
-                                      prefill_chunk=8, device=cuda)
-    for r in poisson_requests(3, rate=0, vocab_size=cfg.vocab_size,
-                              prompt_len=6, max_new_tokens=10, seed=0):
-        engine.submit(r)
-    _until_all_decoding(engine)
+
+    def engine_for(trunk):
+        engine = ContinuousBatchingEngine(
+            cfg, params, max_slots=3, max_seq=400, prefill_chunk=8,
+            balanced_trunk=trunk, device=cuda)
+        for r in poisson_requests(3, rate=0, vocab_size=cfg.vocab_size,
+                                  prompt_len=6, max_new_tokens=10, seed=0):
+            engine.submit(r)
+        _until_all_decoding(engine)
+        return engine
+
+    def watched_step(engine):
+        man = engine.manager
+        tok = torch.as_tensor(man.last_token[:, None], device=cuda)
+        pos = torch.as_tensor(man.pos, device=cuda)
+        watch = _F32Watch()
+        with watch.mode():
+            engine._decode_body(tok, pos)
+        torch.cuda.synchronize()
+        return watch
+
+    engine = engine_for(None)
     layer = engine.manager.state[0].k[0]
     assert layer.dtype == torch.bfloat16
-    big = []
-
-    class Watch(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            for t in (out if isinstance(out, (tuple, list)) else [out]):
-                if isinstance(t, torch.Tensor) and \
-                        t.dtype == torch.float32 and \
-                        t.numel() >= layer.numel():
-                    big.append((str(func), tuple(t.shape)))
-            return out
-
-    man = engine.manager
-    tok = torch.as_tensor(man.last_token[:, None], device=cuda)
-    pos = torch.as_tensor(man.pos, device=cuda)
-    with Watch():
-        engine._decode_body(tok, pos)
-    torch.cuda.synchronize()
+    big = [o for o in watched_step(engine).outputs if o[2] >= layer.numel()]
     assert big == []
+
+    trunk = BalancedTrunk.from_params(
+        cfg, params, HybridKernelDispatcher.virtual("ultra-125h"),
+        quant="q4", device=cuda)
+    engine = engine_for(trunk)
+    products = []
+    q4 = CompiledDispatcher._q4
+
+    def spy(self, x, *args):
+        y = q4(self, x, *args)
+        products.append((x.dtype, tuple(x.shape), y.dtype, tuple(y.shape)))
+        return y
+
+    monkeypatch.setattr(CompiledDispatcher, "_q4", spy)
+    before = (K.q4_matmul_db.launches, K.q4_matmul_db.tc_launches)
+    watch = watched_step(engine)
+    launched = (K.q4_matmul_db.launches - before[0],
+                K.q4_matmul_db.tc_launches - before[1])
+    # every layer's 7 products (bf16 y) and the head (f32 logits), each one
+    # tensor-core launch
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [(xd, yd) for xd, _, yd, _ in products] == \
+        [(bf16, bf16)] * (7 * cfg.n_layers) + [(bf16, f32)]
+    assert launched == (len(products), len(products))
+    shapes = {xs for _, xs, _, _ in products} | \
+        {ys for _, _, _, ys in products}
+    assert [c for c in watch.copies if c[2] in shapes] == []
 
 
 @pytest.mark.gpu

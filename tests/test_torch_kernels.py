@@ -6,6 +6,8 @@ Pallas kernels run in interpret mode.  The CUDA kernels against the plain
 version, on a card, are in ``test_torch_gpu.py``.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -149,6 +151,37 @@ def test_cpu_tensors_take_plain_path_and_do_not_count():
     assert K.q4_matmul.launches == 0 and K.q4_matmul_db.launches == 0
 
 
+@pytest.mark.parametrize("double_buffer", [True, False])
+@pytest.mark.parametrize("plain", [False, True])
+def test_compiled_apply_bf16_equals_the_f32_product_rounded_once(
+        double_buffer, plain):
+    """A Q4 projection of bf16 activations goes into the Q4 path without a
+    cast to float32: on the CPU it gives bitwise what the float32 product
+    rounded once to bf16 gave, in x's dtype and shape; float32 x is
+    unchanged."""
+    from repro_torch.kernels.compiled import CompiledDispatcher
+    from repro_torch.kernels.dispatch import HybridKernelDispatcher
+    from repro_torch.models.layers import BalancedQuantLinear
+
+    disp = HybridKernelDispatcher.virtual("ultra-125h")
+    cd = CompiledDispatcher(disp, double_buffer=double_buffer, device="cpu")
+    w = torch.from_numpy(RNG.standard_normal((96, 512)).astype(np.float32))
+    layer = BalancedQuantLinear.from_dense(w, disp)
+    x = torch.from_numpy(RNG.standard_normal((2, 3, 512)).astype(
+        np.float32)).to(torch.bfloat16)
+    bk = q4_blocks(512)[2]
+    want = K.q4_matmul_plain(x.reshape(6, 512).to(torch.float32), layer.qw,
+                             bk).to(torch.bfloat16).reshape(2, 3, 96)
+    got = cd.apply(layer, x, isa="membw", kind="attn_proj", plain=plain)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 3, 96)
+    assert torch.equal(got, want)
+    x32 = x.to(torch.float32)
+    got32 = cd.apply(layer, x32, isa="membw", kind="attn_proj", plain=plain)
+    assert got32.dtype == torch.float32
+    assert torch.equal(got32, K.q4_matmul_plain(
+        x32.reshape(6, 512), layer.qw, bk).reshape(2, 3, 96))
+
+
 def test_wrappers_raise_on_devices_without_a_kernel():
     x = torch.empty((2, 64), device="meta")
     qw = QuantizedLinear(torch.empty((8, 32), dtype=torch.uint8,
@@ -189,6 +222,18 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.compile_library(K.SOURCE, tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc"):
         K.compile_library(force=True)
+
+
+def test_q4_roofline_sees_every_q4_kernel_body():
+    """The benchmark's ``q4_roofline`` readers find Q4_0 launches by the
+    names ``kernel_names`` reads from the source: one for each
+    ``__global__`` declaration, the f32 and the tensor-core body both."""
+    from perfbench.harness.view import kernel_names
+
+    declared = re.findall(r"__global__\s", K.SOURCE.read_text())
+    names = kernel_names([K.SOURCE])
+    assert len(names) == len(declared) >= 2
+    assert {"q4_gemv_kernel", "q4_mma_kernel"} <= set(names)
 
 
 def test_kernel_source_names_what_it_replaces():
